@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Per-op device budget of the artifact-clean (arf) stage at session scale.
 
-The 100k full-contract runs put arf at 158-241 s on a ~4100^2 canvas
-(BENCHMARKS.md); this script isolates the stage's components on ONE
-synthetic session-scale dot canvas so the wall splits into upload /
-blend / heatmap / select / finalize-download / host-margin-crop:
+The 100k full-contract runs spend much of their arf wall on a ~4100^2
+canvas; this script isolates the stage's components on ONE synthetic
+session-scale dot canvas so the wall splits into upload / blend /
+heatmap / select / finalize-download / host-margin-crop:
 
   1. host->device upload of the [N, N, 16] uint16 dot canvas (~0.5 GB
      at N=4096 — the dots live on host between fdf and clean)
@@ -16,8 +16,8 @@ blend / heatmap / select / finalize-download / host-margin-crop:
      pay is the worst case measured here)
   6. margins_of host scan (the final crop, runs on the host copy)
 
-Timing protocol: chained dispatch + one-element fetch (BENCHMARKS.md
-"measurement traps"); single-shot walls for the host/link items.
+Timing protocol: repeated calls, each ending in block_until_ready;
+single-shot walls for the host and transfer items.
 
 Usage: python benchmarks/arf_budget.py [--size 4096] [--chain 4]
 """
@@ -33,14 +33,12 @@ sys.path.insert(0, ".")
 
 
 def timed(name, fn, chain, *args):
-    out = fn(*args)
-    leaf = out[0] if isinstance(out, tuple) else out
-    _ = float(np.asarray(leaf.ravel()[0]))
+    import jax
+
+    jax.block_until_ready(fn(*args))
     t0 = time.perf_counter()
     for _ in range(chain):
-        out = fn(*args)
-        leaf = out[0] if isinstance(out, tuple) else out
-    _ = float(np.asarray(leaf.ravel()[0]))
+        jax.block_until_ready(fn(*args))
     ms = (time.perf_counter() - t0) / chain * 1000
     print(f"{name:42s} {ms:10.2f} ms", flush=True)
     return ms
@@ -59,6 +57,9 @@ def main() -> None:
     ap.add_argument("--size", type=int, default=4096)
     ap.add_argument("--chain", type=int, default=4)
     args = ap.parse_args()
+    from benchmarks import device
+
+    device.require_gpu()
 
     import jax
     import jax.numpy as jnp

@@ -28,6 +28,10 @@ def main() -> None:
     p.add_argument("--frames", type=int, default=512)
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args()
+    from benchmarks import device
+
+    if not args.cpu:
+        device.require_gpu()
 
     setup_cache()
     import jax

@@ -30,6 +30,9 @@ def main() -> None:
     ap.add_argument("--size", type=int, default=4096)
     ap.add_argument("--bands", type=int, default=3)
     args = ap.parse_args()
+    from benchmarks import device
+
+    device.require_gpu()
 
     from remap_tpu.utils.runtime import setup_cache
 
@@ -44,8 +47,10 @@ def main() -> None:
     from remap_tpu.pipeline import splice as spl
 
     cfg = PipelineConfig(screen_width=256, screen_height=240)
-    cache = f"/tmp/fgs_probe_tables_{args.size}_{args.bands}.npz"
     import os
+
+    os.makedirs(".bench_data", exist_ok=True)
+    cache = f".bench_data/fgs_probe_tables_{args.size}_{args.bands}.npz"
 
     if os.path.exists(cache):
         z = np.load(cache)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Per-phase budget of the frc collect loop at session scale.
 
-The 100k contract pins frc at ~243 s (~430 fps) against a streaming
--step device rate of ~11.8k fps — the gap is host/link/dispatch time
-this script decomposes.  Phases accumulate (each includes the previous):
+The collect loop runs far below the streaming step's device rate; the
+gap is host, transfer and dispatch time, which this script decomposes.
+Phases accumulate (each includes the previous):
 
   read      : native feed read+crop+pack only (no device work)
   upload    : + jnp.asarray of each packed batch (forced at the end)
@@ -35,6 +35,9 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=25_600)
     ap.add_argument("--batch", type=int, default=256)
     args = ap.parse_args()
+    from benchmarks import device
+
+    device.require_gpu()
 
     from remap_tpu.utils.runtime import setup_cache
 
@@ -48,10 +51,11 @@ def main() -> None:
     from remap_tpu.io import frames as frames_io
     from remap_tpu.pipeline import collect as collect_mod
     from remap_tpu.pipeline.state import FrameStore
+    from remap_tpu.utils import backend
 
     clip_dir = args.clip_dir
     if clip_dir is None:
-        cands = sorted(glob.glob("/tmp/remap100k_*"))
+        cands = sorted(glob.glob(".bench_data/remap100k_*"))
         assert cands, "render the contract clip first (full_session_100k)"
         clip_dir = cands[0]
     W, H = 256, 240
@@ -126,7 +130,7 @@ def main() -> None:
 
     # --- drain (the production loop body)
     store = FrameStore(ch, cw,
-                       device_budget=FrameStore.HBM_STORE_BUDGET)
+                       device_budget=backend.store_budget("hbm"))
     from collections import deque
 
     t0 = time.perf_counter()
@@ -160,8 +164,8 @@ def main() -> None:
     t0 = time.perf_counter()
     collect_mod.match_pass(feed2, layout, cfg,
                            FrameStore(ch, cw,
-                                      device_budget=FrameStore.
-                                      HBM_STORE_BUDGET))
+                                      device_budget=backend.store_budget(
+                                          "hbm")))
     walls["match_pass"] = time.perf_counter() - t0
     print(f"match_pass{walls['match_pass']:6.1f} s", flush=True)
 

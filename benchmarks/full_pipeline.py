@@ -35,6 +35,10 @@ def main() -> None:
              "double-buffered collect)",
     )
     args = p.parse_args()
+    from benchmarks import device
+
+    if not args.cpu:
+        device.require_gpu()
 
     import jax
 

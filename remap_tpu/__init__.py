@@ -1,4 +1,5 @@
-"""remap_tpu — a TPU-native (JAX/XLA/Pallas) game-world-map reconstruction framework.
+"""remap_tpu — a JAX (XLA/Pallas) game-world-map reconstruction framework
+for the GPU.
 
 Re-designed from scratch with the capabilities of the C++/AVX2 reference
 ``kataklinger/remap``: decoded gameplay frames stream through batched device
@@ -14,8 +15,9 @@ Layering (bottom → top):
 - ``ops``       JAX/Pallas device kernels (median/keypoints/matching/atlas/…)
 - ``pipeline``  the five stages (window → collect → splice → filter → clean)
   and the orchestrating builder
-- ``parallel``  device meshes, sharded batch pipelines, multi-chip dry runs
-- ``utils``     profiling, synthetic-clip generation, callbacks
+- ``parallel``  device meshes, sharded batch pipelines, multi-device dry runs
+- ``utils``     profiling, synthetic-clip generation, compile cache,
+  backend choices
 
 The compute path is pure JAX (jit/vmap/lax.scan + Pallas kernels); host-side
 orchestration is Python with optional C++ acceleration for the frame codec.

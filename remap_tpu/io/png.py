@@ -45,6 +45,35 @@ def _write_png_zlib(path: str, rgb: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+def read_png(path: str) -> np.ndarray:
+    """PNG file -> [H, W, 3] uint8: Pillow when available, else the
+    files ``_write_png_zlib`` writes (RGB8, filter 0 on every row)."""
+    try:
+        from PIL import Image
+
+        return np.asarray(Image.open(path).convert("RGB"))
+    except ImportError:
+        pass
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        tag, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            if (depth, ctype) != (8, 2):
+                raise ValueError(f"{path}: not RGB8")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered rows need Pillow")
+    return rows[:, 1:].reshape(h, w, 3).copy()
+
+
 def write_map(path: str, image: np.ndarray) -> None:
     """Palette-map a native-code image and write it (main.cpp:255-259)."""
     write_png(path, palette.native_to_rgb(image))

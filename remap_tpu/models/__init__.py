@@ -1,15 +1,15 @@
 """Model families: alignment engines the pipeline can run on.
 
 The reference has exactly one alignment algorithm (grid keypoint voting,
-kpm.hpp).  The TPU framework offers a family per content/scale regime,
+kpm.hpp).  This framework offers a family per content/scale regime,
 all sharing the pipeline's feed/stitch/foreground/clean stages:
 
 - ``grid_vote``  — reference-parity keypoint voting (default; bit-exact
   against the NumPy spec / C++ semantics).
 - ``xcorr``      — dense FFT cross-correlation over the one-hot palette
-  channels; robust on keypoint-poor content, MXU/FFT-bound.
+  channels; robust on keypoint-poor content, FFT-bound.
 - ``pyramid``    — coarse-to-fine xcorr for high-res captures
-  (BASELINE.json config 5: 640x480 over a pod slice).
+  (BASELINE.json config 5: 640x480 over a device mesh).
 
 ``get_matcher(name)`` returns a ``(prev_frames, curr_frames) ->
 (offsets, ok)`` batch matcher; pipeline.collect threads it through the

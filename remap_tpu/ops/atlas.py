@@ -1,4 +1,4 @@
-"""Fragment atlas device kernels (fgm.hpp on TPU).
+"""Fragment atlas device kernels (fgm.hpp).
 
 The reference grows a per-fragment canvas of 16-bin vote histograms and
 blits frames one at a time (fgm.hpp:71-113,176-233).  Here the canvas is a
@@ -6,7 +6,8 @@ static padded [Ha, Wa, 16] uint16 array; a whole fragment's frames are
 blitted in one ``lax.scan`` of dynamic-update-slice adds (positions are
 known up front from the batched matcher, so no growth logic is needed —
 the extent is computed on the host and padded to a bucket size to bound
-recompiles).
+recompiles).  On a GPU the Triton kernel of ``ops.pallas.blit`` replaces
+the scan (``utils.backend.blit_path``).
 
 Vote counts wrap at 65535 exactly like the C++ ``++uint16`` (fgm.hpp:12-15).
 """
@@ -19,10 +20,14 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
+from remap_tpu.utils import backend
+
 DEPTH = 16  # fgm.hpp:12
 
 
-@functools.partial(jax.jit, static_argnames=("atlas_h", "atlas_w"))
+@functools.partial(
+    jax.jit, static_argnames=("atlas_h", "atlas_w", "kernels")
+)
 def blit_frames(
     frames: jax.Array,          # [F, H, W] uint8
     positions: jax.Array,       # [F, 2] int32 (x, y) atlas coords, in-bounds
@@ -30,11 +35,19 @@ def blit_frames(
     atlas_w: int,
     masks: Optional[jax.Array] = None,   # [F, H, W] uint8; vote where == 0
     dots: Optional[jax.Array] = None,    # [Ha, Wa, 16] uint16 to accumulate
+    kernels: Optional[bool] = None,
 ) -> jax.Array:
-    """Scatter color votes of all frames into an atlas (fgm.hpp:71-97)."""
+    """Scatter color votes of all frames into an atlas (fgm.hpp:71-97).
+
+    ``kernels`` picks the Triton kernel or this scan (None: the
+    device decides, utils.backend)."""
     f, h, w = frames.shape
     if dots is None:
         dots = jnp.zeros((atlas_h, atlas_w, DEPTH), dtype=jnp.uint16)
+    if backend.blit_path(f, h, w, atlas_h, atlas_w, kernels) != backend.XLA:
+        from remap_tpu.ops.pallas import blit as pblit
+
+        return pblit.blit_frames(frames, positions, dots, masks)
 
     def step(dots, inp):
         if masks is None:

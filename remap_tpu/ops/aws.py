@@ -1,4 +1,4 @@
-"""Action-window scan device kernels (aws.hpp on TPU).
+"""Action-window scan device kernels (aws.hpp).
 
 Per batch of frames: the persistent {0,1} heatmap is advanced by a
 *cumulative logical AND* over consecutive-frame equality masks — an

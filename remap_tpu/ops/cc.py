@@ -1,7 +1,7 @@
-"""Connected-component labeling on device (TPU form of cte.hpp).
+"""Connected-component labeling on device (device form of cte.hpp).
 
 The reference BFS-flood-fills equal-valued 4-connected components bounded
-by a 1-px horizon border (cte.hpp:103-147).  The TPU formulation is
+by a 1-px horizon border (cte.hpp:103-147).  The device formulation is
 iterative **min-label propagation with pointer jumping**: every interior
 pixel starts labeled with its own flat index; each step takes the min label
 over equal-valued 4-neighbours, then short-circuits chains by gathering

@@ -1,7 +1,7 @@
-"""Dense 2D cross-correlation alignment scoring (TPU-native matcher).
+"""Dense 2D cross-correlation alignment scoring (FFT matcher family).
 
 The reference has no correlation matcher — its alignment is keypoint
-voting (kpm.hpp).  This module is the TPU-first alternative blessed by the
+voting (kpm.hpp).  This module is the dense alternative named by the
 project north star ("dense 2D pixel cross-correlation for alignment
 scoring … tiled correlation GEMMs"): the count-of-agreement score
 
@@ -34,7 +34,7 @@ class XCorrResult(NamedTuple):
 
 
 def _pad_dim(n: int, r: int) -> int:
-    """FFT-friendly padded size >= n + 2r (multiples of 128 suit TPU)."""
+    """FFT-friendly padded size >= n + 2r (multiples of 128)."""
     target = n + 2 * r
     return ((target + 127) // 128) * 128
 
@@ -185,7 +185,7 @@ def match_canvases(
 
     The xcorr/pyramid families' splice-stage matcher (the reference's
     splice is keypoint-cellular only, fgs.hpp:119-140; this is the dense
-    TPU-native alternative): every offset of the full correlation plane is
+    dense alternative): every offset of the full correlation plane is
     scored by exact agreement counts, the peak maximises agreement among
     offsets with at least ``min_overlap`` covered pixels, and acceptance
     requires agreement >= ratio * overlap there.

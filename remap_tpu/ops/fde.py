@@ -1,4 +1,4 @@
-"""Foreground extraction device kernels (fde.hpp on TPU).
+"""Foreground extraction device kernels (fde.hpp).
 
 For each stored frame of a fragment, against the blended background:
 
@@ -163,12 +163,11 @@ def _masks_from_labels_sorted(
     labels: jax.Array,    # [B, H, W] int32 (min-pixel-index components)
     changed: jax.Array,   # [B, H, W] bool (per-pixel changed mask)
     area_limit: int,
-    _until: str | None = None,   # bench bisect, as in the stats variant
 ) -> jax.Array:
     """fde::mask from LABELS alone — every per-component stat the mask
     needs falls out of the (label, pixel) sort:
 
-    - AREA is a segment length (as in :func:`_masks_from_stats_sorted`),
+    - AREA is a segment length,
     - has-changed is a fwd+rev segmented max of the changed bit riding
       the sort payload (the reference's seed predicate, cte.hpp:93-99,
       is per-component ANY over changed pixels),
@@ -177,15 +176,12 @@ def _masks_from_labels_sorted(
     - maxy/maxx come from the segment END: row-major order puts the max
       row last, and an inclusive segmented cummax of x gathered at the
       end yields maxx,
-    - the quirky fill-left is the same scan pair as the stats variant.
+    - the quirky fill-left (the reference enclosure's lower_,
+      cdt.hpp:183-190: min over run-endpoint xs that are not strict
+      running maxima in row-major order) is an encode-trick cummax plus
+      one reverse-scan segmented min.
 
-    This exists because the in-kernel stats propagation
-    (`pallas.cc.label_stats_batch`) blows the 16 MB scoped-VMEM budget
-    past ~105k padded pixels (measured: 18.88 MB at 272x372 — the
-    gameplay screen size), while the labels-only kernels reach 250k
-    whole-plane and ANY size row-banded.  Deriving stats from the sort
-    the assembly already pays removes the kernel ceiling entirely.
-    Semantics equal :func:`_masks_from_stats` bit-for-bit
+    Semantics equal the per-frame :func:`foreground_mask` bit-for-bit
     (equality-tested, incl. the dense fallback, which here runs
     straight off the sorted-order arrays — the corner scatter of the
     difference-array fill is order-invariant, so nothing needs
@@ -218,8 +214,6 @@ def _masks_from_labels_sorted(
         )
         packed = (key.astype(jnp.uint32) << 16) | pos16
         spacked, spay = jax.lax.sort((packed, payload), num_keys=1)
-        if _until == "sort":
-            return spacked
         sl = (spacked >> 16).astype(jnp.int32)
         spos = (spacked & 0xFFFF).astype(jnp.int32)
     else:
@@ -227,8 +221,6 @@ def _masks_from_labels_sorted(
             jnp.arange(big, dtype=jnp.int32)[None], (b, big)
         )
         sl, spos, spay = jax.lax.sort((key, pos, payload), num_keys=2)
-        if _until == "sort":
-            return sl
     sxs = spos % w
     sep = (spay & 1) > 0
     valid = sl < big
@@ -259,7 +251,7 @@ def _masks_from_labels_sorted(
 
     kept_sorted = valid & comp_chg & (area_sorted <= area_limit)
 
-    # quirky fill-left (identical to the stats variant)
+    # quirky fill-left
     encode = w + 1
     run_in = jnp.where(sep & valid, sxs, 0)
     incl_max = _seg_cummax(run_in, seg, encode)
@@ -278,8 +270,6 @@ def _masks_from_labels_sorted(
     fwd_x = _seg_cummax(jnp.where(valid, sxs, 0), seg, encode)
 
     u_sorted = (starts & kept_sorted).astype(jnp.int32)
-    if _until == "scans":
-        return u_sorted
 
     def fill(u, tt, bb, ll, rr):
         diff = jnp.zeros((h + 1, w + 1), jnp.int32)
@@ -302,7 +292,7 @@ def _masks_from_labels_sorted(
         ge = lambda a: jnp.take_along_axis(a, end_idx, axis=1)
         # top = label // W (min pixel's row); bottom/right from the
         # segment end — inclusive bounds used as exclusive, the
-        # reference's fde.hpp:122-146 quirk (as in _masks_from_stats)
+        # reference's fde.hpp:122-146 quirk (as in foreground_mask)
         tt = jnp.clip(g(sl) // w, 0, h)
         bb = jnp.clip(ge(spos) // w, 0, h)
         rr = jnp.clip(ge(fwd_x), 0, w)
@@ -334,21 +324,17 @@ def _masks_from_labels_sorted(
         ),
         big,
     )
-    if _until == "fill":
-        return inside
 
     unperm = jax.lax.sort(
         ((spos << 1) | kept_sorted.astype(jnp.int32),), num_keys=1
     )[0]
     pix = (unperm & 1) > 0
-    if _until == "unperm":
-        return pix
 
     return pix.reshape(b, h, w) | inside
 
 
 @functools.partial(
-    jax.jit, static_argnames=("area_divisor", "compute_medians", "use_pallas")
+    jax.jit, static_argnames=("area_divisor", "compute_medians")
 )
 def extract_batch(
     background: jax.Array,   # [HB, WB] uint8
@@ -357,14 +343,12 @@ def extract_batch(
     positions: jax.Array,    # [B, 2] int32
     area_divisor: int = 5,
     compute_medians: bool = False,
-    use_pallas: bool = False,
 ) -> jax.Array:
     """[B, H, W] uint8 foreground masks (1 = foreground, vote where 0).
 
     Medians are a pure function of the frame (kpe.hpp:308-314), so with
     ``compute_medians`` they are recomputed here instead of shipped from
-    the host store (device->host downloads are the slow direction on the
-    benchmark harness)."""
+    the host store."""
     _, h, w = frames.shape
     limit = (h * w) // area_divisor
 
@@ -374,38 +358,16 @@ def extract_batch(
 
         # processed bounds depend only on the frame dims, not the grid
         layout = make_layout(w, h, 1, 1, 0)
-        medians = kpe_ops.extract_dense(frames, layout, use_pallas).median
+        medians = kpe_ops.extract_dense(frames, layout).median
 
     changed = jax.vmap(
         lambda f, p: ~equality_mask(background, f, p)
     )(frames, positions)
-
-    if use_pallas:
-        from remap_tpu.ops.pallas import cc as pcc
-
-        if pcc.supports_stats(h, w) and h * w * (w + 1) < (1 << 31):
-            # small screens (NES class): bbox/changed propagate in the
-            # CC kernel itself; the sort-based assembly reads them
-            labels, stats = pcc.label_stats_batch(medians, changed)
-            return _masks_from_stats_sorted(labels, stats, limit).astype(
-                jnp.uint8
-            )
-        if pcc.supports(h, w):
-            labels = pcc.label_components_batch(medians)
-        else:
-            # >VGA screens: row-banded kernel + boundary union (bit-exact
-            # at any frame size; 213 -> 54 ms/frame at 1920x1080)
-            labels = pcc.label_components_banded(medians)
-        if h * w * (max(h, w) + 1) < (1 << 31):
-            # past the stats kernel's scoped-VMEM ceiling (~79k padded
-            # px: 272x372 gameplay screens, VGA, 1080p) the labels-only
-            # sorted assembly derives area/bbox/changed from the sort
-            # it already pays — no kernel ceiling, same bit-exactness
-            return _masks_from_labels_sorted(labels, changed, limit).astype(
-                jnp.uint8
-            )
-    else:
-        labels = jax.vmap(cc.label_components)(medians)
+    labels = jax.vmap(cc.label_components)(medians)
+    if sorted_assembly_fits(h, w):
+        return _masks_from_labels_sorted(labels, changed, limit).astype(
+            jnp.uint8
+        )
 
     # quirky lefts computed OUTSIDE the vmap: the batch-level helper
     # keeps its case-detector a real cond (vmapping the per-frame cond
@@ -418,87 +380,13 @@ def extract_batch(
     )(medians, changed, labels, qleft).astype(jnp.uint8)
 
 
-def _masks_from_stats(
-    labels: jax.Array,   # [B, H, W] int32
-    stats: jax.Array,    # [B, 5, H, W] int32 (minx, miny, maxx, maxy, chg)
-    area_limit: int,
-) -> jax.Array:
-    """Batched fde::mask from per-pixel component stats.
-
-    With bbox/changed propagated in the CC kernel, the XLA side needs
-    only the component areas (one segment_sum + one gather) and the bbox
-    difference-array fill; fills use [miny, maxy) x [minx, maxx) — the
-    reference's inclusive-bounds-treated-as-exclusive quirk
-    (fde.hpp:122-146)."""
-    b, h, w = labels.shape
-    big = h * w
-    flat = labels.reshape(b, -1)
-    safe = jnp.clip(flat, 0, big - 1)
-    interior = flat < big
-
-    area_seg = jax.vmap(
-        lambda s, i: jax.ops.segment_sum(
-            jnp.where(i, 1, 0), s, num_segments=big
-        )
-    )(safe, interior)
-    area_pix = jnp.take_along_axis(area_seg, safe, axis=1)
-
-    chg_pix = stats[:, 4].reshape(b, -1) > 0
-    kept = interior & chg_pix & (area_pix <= area_limit)
-
-    iota = jnp.arange(big, dtype=jnp.int32)[None]
-    is_root = kept & (flat == iota)
-    upd = jnp.where(is_root, 1, 0)
-
-    t = jnp.clip(stats[:, 1].reshape(b, -1), 0, h)
-    b_ = jnp.clip(stats[:, 3].reshape(b, -1), 0, h)
-    r_ = jnp.clip(stats[:, 2].reshape(b, -1), 0, w)
-    # the fill's left is the quirky enclosure lower_ (cc.quirky_fill_left,
-    # cdt.hpp:183-190), not the kernel-propagated true minx (stats[:, 0]);
-    # min(.., r_) turns unset/inverted into an empty span like the
-    # reference's never-entered loop
-    qleft_seg = cc.quirky_fill_left_batch(labels)            # [B, big]
-    qleft_pix = jnp.take_along_axis(qleft_seg, safe, axis=1)
-    l_ = jnp.clip(jnp.minimum(qleft_pix, r_), 0, w)
-
-    def fill(u, tt, bb, ll, rr):
-        diff = jnp.zeros((h + 1, w + 1), jnp.int32)
-        diff = diff.at[tt, ll].add(u)
-        diff = diff.at[tt, rr].add(-u)
-        diff = diff.at[bb, ll].add(-u)
-        diff = diff.at[bb, rr].add(u)
-        return jnp.cumsum(jnp.cumsum(diff, axis=0), axis=1)[:h, :w] > 0
-
-    def fill_exact(args):
-        return jax.vmap(fill)(*args)
-
-    def fill_topk(args):
-        # roots are sparse (one per kept component): compact their
-        # indices with a single-operand sort (top_k at this k lowers to
-        # a catastrophically slower multi-operand sort on TPU — measured
-        # >600 ms vs 26 ms at [256, 50k]) so the difference-array
-        # scatter runs on K entries instead of H*W
-        u, tt, bb, ll, rr = args
-        cap = min(_ROOT_CAP, big)
-        iota2 = jnp.broadcast_to(
-            jnp.arange(big, dtype=jnp.int32)[None], u.shape
-        )
-        ridx = jax.lax.sort(
-            (jnp.where(u > 0, iota2, big),), num_keys=1
-        )[0][:, :cap]
-        vals = (ridx < big).astype(jnp.int32)
-        safe_r = jnp.clip(ridx, 0, big - 1)
-        g = lambda a: jnp.take_along_axis(a, safe_r, axis=1)
-        return jax.vmap(fill)(vals, g(tt), g(bb), g(ll), g(rr))
-
-    args = (upd, t, b_, l_, r_)
-    # exactness guard: frames with more roots than the compaction cap
-    # escalate to the full-size scatter — per poisoned frame, not per
-    # batch (_escalated_fill), so the common case never pays for it
-    inside = _escalated_fill(
-        upd, args, fill_topk, lambda a, rows: fill_exact(a), big
-    )
-    return kept.reshape(b, h, w) | inside
+def sorted_assembly_fits(h: int, w: int) -> bool:
+    """Whether ``_masks_from_labels_sorted`` covers [h, w] frames: its
+    segmented-scan encoding needs H*W * (max(H, W) + 1) < 2^31 (up to
+    about 1024x768).  Larger frames take the per-frame
+    ``foreground_mask``, 2.5-2.8x slower on an H100 at 256x240 and
+    388x312 (benchmarks/kernel_ab.py)."""
+    return h * w * (max(h, w) + 1) < (1 << 31)
 
 
 def _seg_cummax(vals: jax.Array, seg: jax.Array, base: int) -> jax.Array:
@@ -510,198 +398,3 @@ def _seg_cummax(vals: jax.Array, seg: jax.Array, base: int) -> jax.Array:
     in-segment encoding."""
     ax = vals.ndim - 1
     return jax.lax.cummax(seg * base + vals, axis=ax) - seg * base
-
-
-def _masks_from_stats_sorted(
-    labels: jax.Array,   # [B, H, W] int32
-    stats: jax.Array,    # [B, 5, H, W] int32 (minx, miny, maxx, maxy, chg)
-    area_limit: int,
-    _until: str | None = None,   # bench bisect: stop after "sort" /
-                                 # "scans" / "fill" / "unperm"
-) -> jax.Array:
-    """fde::mask via ONE packed sort + segmented scans (big < 2^16).
-
-    The original assembly paid five [B, H*W]-sized scatters (segment
-    ops), a three-operand two-key sort for the quirky fill-left, and two
-    whole-image gathers — ~1.7 s per 256-frame NES batch, 96% of the
-    foreground stage's device time (benchmarks/fdf_budget.py).  Sorting
-    each frame ONCE by (label << 16 | pixel-index) makes every component
-    a contiguous run in row-major pixel order, after which:
-
-    - component AREA is a segment length (two scans),
-    - the quirky fill-left (the reference enclosure's lower_,
-      cdt.hpp:183-190: min over run-endpoint xs that are not strict
-      running maxima in row-major order) is the existing encode-trick
-      cummax + one reverse-scan segmented min — and the sorted path is
-      now ALWAYS exact, so the case-B detector and its two segment ops
-      disappear,
-    - bbox-fill roots are segment starts: root stats come from tiny
-      [B, ROOT_CAP] gathers after top_k compaction instead of
-      whole-image gathers.
-
-    No whole-image scatter remains: kept flags return to pixel order
-    via a 1-op unpermute sort.  Semantics identical to
-    :func:`_masks_from_stats` (equality-tested).  Screens with
-    H*W >= 2^16 sort (label, pos) as two int32 keys instead of one
-    packed uint32 — same scans; the segmented-scan encode trick needs
-    H*W * (W+1) < 2^31, asserted below (beyond that the scatter-based
-    path runs).
-    """
-    b, h, w = labels.shape
-    big = h * w
-    assert big * (w + 1) < (1 << 31), "segmented-scan encode overflows"
-    flat = labels.reshape(b, -1)
-    interior = flat < big
-
-    # run endpoints (same-row left/right label boundaries), per pixel
-    def shifted_lab(lab, dx):
-        rolled = jnp.roll(lab, -dx, axis=2)
-        xs_ = jax.lax.broadcasted_iota(jnp.int32, (b, h, w), 2)
-        ok = (xs_ + dx >= 0) & (xs_ + dx < w)
-        return jnp.where(ok, rolled, big + 1)
-
-    ep = (
-        (labels != shifted_lab(labels, -1))
-        | (labels != shifted_lab(labels, 1))
-    ) & (labels < big)
-    chg = stats[:, 4].reshape(b, -1) > 0
-
-    key = jnp.where(interior, flat, big)
-    payload = ep.reshape(b, -1).astype(jnp.int32) | (
-        chg.astype(jnp.int32) << 1
-    )
-    if big < (1 << 16):
-        pos16 = jnp.broadcast_to(
-            jnp.arange(big, dtype=jnp.uint32)[None], (b, big)
-        )
-        packed = (key.astype(jnp.uint32) << 16) | pos16
-        spacked, spay = jax.lax.sort((packed, payload), num_keys=1)
-        if _until == "sort":
-            return spacked
-        sl = (spacked >> 16).astype(jnp.int32)
-        spos = (spacked & 0xFFFF).astype(jnp.int32)
-    else:
-        pos = jnp.broadcast_to(
-            jnp.arange(big, dtype=jnp.int32)[None], (b, big)
-        )
-        sl, spos, spay = jax.lax.sort((key, pos, payload), num_keys=2)
-        if _until == "sort":
-            return sl
-    sxs = spos % w
-    sep = (spay & 1) > 0
-    valid = sl < big
-
-    idx = jnp.broadcast_to(jnp.arange(big, dtype=jnp.int32)[None], (b, big))
-    # bound: any label change (INCLUDING into the exterior block, which
-    # sorts last — without it the last valid segment's extent would run
-    # through the exterior elements and overcount its area)
-    bound = jnp.concatenate(
-        [jnp.ones((b, 1), bool), sl[:, 1:] != sl[:, :-1]], axis=1
-    )
-    starts = bound & valid
-    seg = jnp.cumsum(starts.astype(jnp.int32), axis=1) - 1
-    seg = jnp.maximum(seg, 0)
-
-    # segment extents -> area (segment length)
-    start_idx = jax.lax.cummax(jnp.where(bound, idx, -1), axis=1)
-    nxt = jnp.where(bound, idx, big)
-    suffix_min_nxt = jax.lax.cummin(nxt[:, ::-1], axis=1)[:, ::-1]
-    next_start = jnp.concatenate(
-        [suffix_min_nxt[:, 1:], jnp.full((b, 1), big, jnp.int32)], axis=1
-    )
-    area_sorted = next_start - start_idx
-
-    kept_sorted = valid & ((spay & 2) > 0) & (area_sorted <= area_limit)
-
-    # quirky fill-left: exclusive running max of endpoint xs, include
-    # non-strict-record endpoints, segment-min of included xs
-    encode = w + 1
-    run_in = jnp.where(sep & valid, sxs, 0)
-    incl_max = _seg_cummax(run_in, seg, encode)
-    prior = jnp.concatenate(
-        [jnp.zeros((b, 1), incl_max.dtype), incl_max[:, :-1]], axis=1
-    )
-    prior = jnp.where(starts, 0, prior)
-    include = sep & valid & (sxs <= prior)
-    contrib = jnp.where(include, sxs, w)
-    # total segment min via a reverse inclusive segmented min (max of
-    # negated values on the reversed arrays; segments stay contiguous)
-    rev_vals = (w - contrib)[:, ::-1]
-    rev_seg = (seg.max(axis=1, keepdims=True) - seg)[:, ::-1]
-    qmin_rev = _seg_cummax(rev_vals, rev_seg, encode)
-    qleft_sorted = w - qmin_rev[:, ::-1]       # total min at segment START
-
-    # roots = kept segment starts; compact, then tiny gathers
-    u_sorted = (starts & kept_sorted).astype(jnp.int32)
-    if _until == "scans":
-        return u_sorted
-
-    def fill(u, tt, bb, ll, rr):
-        diff = jnp.zeros((h + 1, w + 1), jnp.int32)
-        diff = diff.at[tt, ll].add(u)
-        diff = diff.at[tt, rr].add(-u)
-        diff = diff.at[bb, ll].add(-u)
-        diff = diff.at[bb, rr].add(u)
-        return jnp.cumsum(jnp.cumsum(diff, axis=0), axis=1)[:h, :w] > 0
-
-    def fill_roots(args):
-        u_s, ql_s = args
-        # compact root slots via a 1-op sort of their indices (top_k at
-        # this k lowers to a far slower multi-operand sort on TPU)
-        root_key = jnp.where(u_s > 0, idx, big)
-        ridx = jax.lax.sort((root_key,), num_keys=1)[0][
-            :, : min(_ROOT_CAP, big)
-        ]
-        vals = (ridx < big).astype(jnp.int32)
-        ridx = jnp.clip(ridx, 0, big - 1)
-        g = lambda a: jnp.take_along_axis(a, ridx, axis=1)
-        roots = g(sl)                       # root pixel index == label
-        stat = lambda k: jnp.take_along_axis(
-            stats[:, k].reshape(b, -1), roots, axis=1
-        )
-        tt = jnp.clip(stat(1), 0, h)
-        bb = jnp.clip(stat(3), 0, h)
-        rr = jnp.clip(stat(2), 0, w)
-        ll = jnp.clip(jnp.minimum(g(ql_s), rr), 0, w)
-        return jax.vmap(fill)(vals, tt, bb, ll, rr)
-
-    def dense_rows(u_s, ql_s, spos_, stats_):
-        # pathological root counts (more than _ROOT_CAP kept components
-        # in some frame — iid-noise content): uncompacted fill, with
-        # the roots/qleft unpermuted back to pixel order by 1-op sorts
-        # (spos is a permutation; value rides below the position key —
-        # the same swap that replaced the kept-flags scatter)
-        upd = (
-            jax.lax.sort(((spos_ << 1) | u_s,), num_keys=1)[0] & 1
-        )
-        qlp_key = spos_ * (w + 1) + jnp.clip(ql_s, 0, w)
-        qlp = jax.lax.sort((qlp_key,), num_keys=1)[0] % (w + 1)
-        nb = stats_.shape[0]
-        tt = jnp.clip(stats_[:, 1].reshape(nb, -1), 0, h)
-        bb = jnp.clip(stats_[:, 3].reshape(nb, -1), 0, h)
-        rr = jnp.clip(stats_[:, 2].reshape(nb, -1), 0, w)
-        ll = jnp.clip(jnp.minimum(qlp, rr), 0, w)
-        return jax.vmap(fill)(upd, tt, bb, ll, rr)
-
-    inside = _escalated_fill(
-        u_sorted, (u_sorted, qleft_sorted), fill_roots,
-        lambda a, rows: dense_rows(a[0], a[1], spos[rows], stats[rows]),
-        big,
-    )
-    if _until == "fill":
-        return inside
-
-    # exact-pixels part: kept flags back to pixel order.  spos is a
-    # permutation of [0, big), so ONE single-operand sort of
-    # (spos << 1 | kept) inverts it with the flag riding in the low
-    # bit — ~4x cheaper than the whole-image scatter it replaces
-    # (docs/INTERNALS.md §3.2 op pricing: 1-op sort ~20 ms vs scatter
-    # ~91 ms at [256, 50k])
-    unperm = jax.lax.sort(
-        ((spos << 1) | kept_sorted.astype(jnp.int32),), num_keys=1
-    )[0]
-    pix = (unperm & 1) > 0
-    if _until == "unperm":
-        return pix
-
-    return pix.reshape(b, h, w) | inside

@@ -1,8 +1,8 @@
 """Batched keypoint + median extraction (device kernel for kpe.hpp).
 
-TPU-first design: where the reference streams one frame at a time through an
-AVX2 register pipeline (kpe.hpp:111-306), here a whole batch of frames is
-processed in one fused XLA dispatch:
+Where the reference streams one frame at a time through an AVX2 register
+pipeline (kpe.hpp:111-306), here a whole batch of frames is processed in
+one fused XLA dispatch:
 
 - one-hot 16-channel expansion of the luminance-ordered image,
 - separable 3x3 / 5x5 box sums (shifted adds — static slices, fully fusible),
@@ -12,9 +12,9 @@ processed in one fused XLA dispatch:
 - descriptor codes as 4 uint32 words of packed nibbles (25-pixel patch +
   weight; canonical packing from spec.kpe.pack_code).
 
-Everything is elementwise/VPU work on [B, H, W(, C)] arrays with static
-shapes; XLA fuses the whole thing into a couple of kernels.  A further
-hand-fused Pallas variant lives in ops/pallas/.
+Everything is elementwise work on [B, H, W(, C)] arrays with static
+shapes; XLA fuses the whole thing into a couple of kernels.  On a GPU the
+Triton kernel of ops/pallas/extract.py replaces it (utils.backend).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import numpy as np
 
 from remap_tpu.core import palette
 from remap_tpu.core.regions import GridLayout
+from remap_tpu.utils import backend
 
 HALF3 = 4   # kpe.hpp:313
 HALF5 = 12  # kpe.hpp:317
@@ -115,25 +116,17 @@ def _extract_dense(images: jax.Array, height: int, width: int) -> DenseExtract:
 def extract_dense(
     images: jax.Array,
     layout: GridLayout,
-    use_pallas: bool = False,
+    kernels: bool | None = None,
 ) -> DenseExtract:
     """Run the dense kernel and zero the outside-bounds median/weight.
 
     Processed bounds: x in [kh, W-kh), y in [kh, H-kh-2) (core.regions).
-    With ``use_pallas`` the fused VMEM kernel (ops.pallas.extract) runs
-    instead of the XLA formulation — bit-identical within bounds (tested
-    on device); callers pass the flag at build time (platform checks
-    cannot happen under tracing).
+    ``kernels`` picks the Triton kernel (ops.pallas.extract, bit-equal)
+    or the XLA form; None lets the device decide (utils.backend).  The
+    choice is made while tracing, from static shapes.
     """
     b, h, w = images.shape
-    # the fused kernel holds ~20 int32 planes in VMEM; frames beyond that
-    # dispatch as row bands with a 2-px halo (ops.pallas.extract), so any
-    # realistic capture size stays on the fused path
-    if use_pallas:
-        from remap_tpu.ops.pallas import extract as pext
-
-        use_pallas = pext.supports(h, w)
-    if use_pallas:
+    if backend.extract_path(b, h, w, kernels) == backend.TRITON:
         from remap_tpu.ops.pallas import extract as pext
 
         res = pext.extract_dense_raw(images)

@@ -95,7 +95,8 @@ def _join_rolled(
     Within an equal-code run, prev entries precede curr (the origin bit),
     so a curr entry's partners sit at small *backward distances* —
     enumerated with ``max_run`` fixed rolls and masks instead of gathers
-    (TPU gathers are ~15ns/element on this target; rolls are bandwidth).
+    (the gather-free form was chosen for an accelerator whose gathers were
+    slow; its price on the GPU is to be re-measured).
 
     Exact as long as each curr entry's backward distance to its run start
     is <= max_run and no code repeats more than ``multiplicity`` times in
@@ -540,7 +541,7 @@ def _region_votes(
         return swing.astype(jnp.int32)
 
     if vote_radius > 0:
-        # MXU vote histogram: counts[dx, dy] = onehot(dx)^T @ onehot(dy)
+        # matmul vote histogram: counts[dx, dy] = onehot(dx)^T @ onehot(dy)
         # over the enumerated pairs — one bf16 matmul with exact f32
         # integer accumulation replaces the offset-key sort.  Offsets
         # beyond the radius raise ``overflow`` and callers escalate to
@@ -747,9 +748,9 @@ def match_tables(
 ) -> MatchResult:
     """Match every (prev[i], curr[i]) pair of table batches: [P, R, ...].
 
-    ``vote_radius > 0`` counts votes in a bounded-offset MXU histogram
-    (offsets beyond the radius flag overflow for escalation); 0 = exact
-    sort-based counting over the full offset range."""
+    ``vote_radius > 0`` counts votes in a bounded-offset one-hot matmul
+    histogram (offsets beyond the radius flag overflow for escalation);
+    0 = exact sort-based counting over the full offset range."""
     w, h = layout.width, layout.height
 
     # adaptive weight switch per region (kpm.hpp:219-222: < vs <=)

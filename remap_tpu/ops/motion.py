@@ -1,4 +1,4 @@
-"""Contour-level motion detection (TPU form of the reference's mod.hpp).
+"""Contour-level motion detection (device form of the reference's mod.hpp).
 
 The reference ships an (unused — no include site) contour motion detector
 (mod.hpp:15-245): given two outline matrices (per-pixel contour id, color,

@@ -1,25 +1,20 @@
-"""Pallas TPU kernel: batched vote-blit into a VMEM-resident atlas.
+"""Triton kernel: batched vote-blit into a fragment canvas (fgm.hpp:71-97).
 
-The XLA formulation (ops.atlas.blit_frames) scans dynamic-update-slices
-over an HBM atlas — every frame round-trips the slice through HBM.  Here
-the whole atlas lives in a VMEM scratch accumulator across the
-sequential grid steps (one per frame); each step one-hot-expands its
-frame and adds it at the frame's position, and the last step DMAs the
-accumulator to the HBM output.  Traffic: frames once in, atlas once out.
+The XLA form (``ops.atlas.blit_frames``) is a ``lax.scan`` over the
+batch's frames: one dynamic-update-slice of the canvas per frame, which
+the GPU runs as a chain of small kernels, each reading and writing its
+window of the canvas.  Here one program owns a TH x TW tile of the
+canvas and loops over the batch: it skips frames whose placement misses
+the tile, counts the others' votes in registers and writes the tile
+once.  No two programs touch the same pixel, so nothing is atomic and
+the result does not depend on scheduling.
 
-Mosaic constraints shaped the design (found empirically on v5e):
-- dynamic VMEM indices must be tile-aligned — positions split into an
-  aligned base (``pl.multiple_of`` hints) plus a sub-tile residual
-  applied by rolling each frame on the XLA side,
-- sub-32-bit comparisons/relayouts are unsupported — the kernel computes
-  entirely in int32 (the uint16 wrap-around of the reference's vote
-  counters, fgm.hpp:12-15, is recovered exactly by the final modular
-  conversion),
-- non-voting pixels (mask or batch padding) are pre-encoded as the
-  out-of-palette value 16, removing a second mask input.
-
-Layout: channels-major ``[16, AH, AW]`` so the wide atlas rows ride the
-128-lane minor dimension.
+The 16 colour counters of a pixel ride as 16-bit fields, two per int32,
+so a frame costs eight selects and adds per pixel.  A call takes fewer
+than 2^16 frames, which no field can outgrow; the sum with the canvas
+is then taken modulo 2^16, the reference's ``++uint16`` wrap
+(fgm.hpp:12-15).  Pixels that do not vote enter as the out-of-palette
+value 16, which matches no counter.
 """
 
 from __future__ import annotations
@@ -29,178 +24,94 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from remap_tpu.utils import backend
 
 DEPTH = 16
-SUB = 8      # sublane alignment
-LANE = 128   # lane alignment
+NO_VOTE = 16
+
+#: canvas tile of one program: 256 pixels over 4 warps (the fastest of
+#: eight tiles from 8x16 to 32x32 timed on an H100 at 256x240 and
+#: 388x312, within 15% of each other)
+TILE = (4, 64)
+NUM_WARPS = 4
 
 
-def padded_dims(atlas_h: int, atlas_w: int):
-    """Tile-aligned physical atlas dims (logical atlas at [:h, :w]).
+def _kernel(pos_ref, frames_ref, dots_ref, out_ref, *, f, h, w, ah, aw,
+            th, tw):
+    y0 = pl.program_id(0) * th
+    x0 = pl.program_id(1) * tw
+    ys = y0 + jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0)
+    xs = x0 + jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1)
+    zero = jnp.zeros((th, tw), jnp.int32)
 
-    Beyond the +SUB/+LANE slack for sub-tile placement, the physical dims
-    themselves must be tile multiples — Mosaic requires DMA slices aligned
-    to the (8, 128) tiling."""
-    ah = ((atlas_h + 2 * SUB + SUB - 1) // SUB) * SUB
-    aw = ((atlas_w + 2 * LANE + LANE - 1) // LANE) * LANE
-    return ah, aw
+    def frame(i, acc):
+        px = pos_ref[2 * i]
+        py = pos_ref[2 * i + 1]
+        hits = (py < y0 + th) & (py + h > y0) & (px < x0 + tw) & (px + w > x0)
 
-
-#: VMEM budget for the resident accumulator plus the double-buffered
-#: frame blocks (the 16 MB core budget minus compiler slack).
-_VMEM_BUDGET = 13 * 1024 * 1024
-
-
-def _pick_tiling(ah: int, aw: int, fh: int, fw: int):
-    """Choose (frames per grid step, channel groups) jointly: the largest
-    frame group whose double-buffered blocks plus the channel-grouped
-    accumulator fit VMEM.  Bigger frame groups amortize per-grid-step
-    overhead (the measured wall at one frame/step); more channel groups
-    shrink the accumulator but re-read every frame once per group."""
-    for group in (GROUP, 4, 2, 1):
-        budget = _VMEM_BUDGET - 2 * group * fh * fw * 4
-        if budget <= 0:
-            continue
-        for groups in (1, 2, 4, 8, 16):
-            if (DEPTH // groups) * ah * aw * 4 <= budget:
-                return group, groups
-    raise ValueError(f"atlas {ah}x{aw} too large for a VMEM-resident blit")
-
-
-def supports(atlas_h: int, atlas_w: int, fh: int, fw: int) -> bool:
-    """True when the VMEM-resident kernel can hold this atlas.
-
-    Session-scale canvases (multi-thousand-pixel fragments, BASELINE
-    config 4) exceed the 16 MB core VMEM even one channel at a time —
-    callers fall back to the XLA scatter path, which streams the atlas
-    through HBM and has no size ceiling."""
-    ah, aw = padded_dims(atlas_h, atlas_w)
-    try:
-        _pick_tiling(ah, aw, fh, fw)
-        return True
-    except ValueError:
-        return False
-
-
-#: frames blitted per grid step.  One frame per step leaves the kernel
-#: dominated by per-step pipeline overhead (~5.6 ms for 256 NES frames
-#: measured); unrolling GROUP frames per step amortizes it.
-GROUP = 8
-
-
-def _make_blit_kernel(gdepth: int, group: int):
-    def _blit_kernel(base_ref, frames_ref, atlas_ref, acc, sem):
-        g = pl.program_id(0)  # channel group (bounds resident VMEM planes)
-        b = pl.program_id(1)  # frame-group index
-        nb = pl.num_programs(1)
-
-        @pl.when(b == 0)
-        def _():
-            acc[...] = jnp.zeros_like(acc)
-
-        base_c = g * gdepth
-        for i in range(group):   # static unroll
-            # [fh, fw] int32, pre-rolled; no-vote pixels encoded as 16
-            frame = frames_ref[0, i]
-            h, w = frame.shape
-            x = pl.multiple_of(base_ref[b * group + i, 0], LANE)
-            y = pl.multiple_of(base_ref[b * group + i, 1], SUB)
-
-            cur = acc[:, pl.ds(y, h), pl.ds(x, w)]  # [gdepth, h, w] int32
-            planes = [
-                cur[c]
-                + jnp.where(frame == base_c + c, jnp.int32(1), jnp.int32(0))
-                for c in range(gdepth)
-            ]
-            acc[:, pl.ds(y, h), pl.ds(x, w)] = jnp.stack(planes)
-
-        @pl.when(b == nb - 1)
-        def _():
-            dma = pltpu.make_async_copy(
-                acc, atlas_ref.at[pl.ds(g * gdepth, gdepth)], sem
+        def vote(acc):
+            fy, fx = ys - py, xs - px
+            ok = (fy >= 0) & (fy < h) & (fx >= 0) & (fx < w)
+            off = (i * h + jnp.clip(fy, 0, h - 1)) * w + jnp.clip(fx, 0, w - 1)
+            v = plgpu.load(frames_ref.at[off], mask=ok,
+                           other=NO_VOTE).astype(jnp.int32)
+            inc = jnp.int32(1) << ((v & 1) * 16)
+            q = v >> 1
+            return tuple(
+                a + jnp.where(q == k, inc, 0) for k, a in enumerate(acc)
             )
-            dma.start()
-            dma.wait()
 
-    return _blit_kernel
+        return jax.lax.cond(hits, vote, lambda a: a, acc)
+
+    acc = jax.lax.fori_loop(0, f, frame, (zero,) * (DEPTH // 2))
+
+    # lanes past the canvas edge point past the array's end: masked off
+    # on the GPU, dropped by the interpreter's scatter, never aliasing
+    # a real pixel
+    inside = (ys < ah) & (xs < aw)
+    pix = jnp.where(inside, ys * aw + xs, ah * aw) * DEPTH
+    for c in range(DEPTH):
+        count = (acc[c // 2] >> (16 * (c & 1))) & 0xFFFF
+        old = plgpu.load(dots_ref.at[pix + c], mask=inside, other=0)
+        plgpu.store(out_ref.at[pix + c],
+                    (old.astype(jnp.int32) + count).astype(jnp.uint16),
+                    mask=inside)
 
 
-@functools.partial(jax.jit, static_argnames=("atlas_h", "atlas_w"))
-def blit_frames(
-    frames: jax.Array,      # [F, H, W] uint8
-    vote_ok: jax.Array,     # [F, H, W] uint8 — 1 where the pixel votes
-    positions: jax.Array,   # [F, 2] int32 (x, y), in-bounds
-    atlas_h: int,
-    atlas_w: int,
-    dots: jax.Array | None = None,  # [16, AH', AW'] uint16 accumulator
-) -> jax.Array:
-    """Returns [16, AH', AW'] uint16 vote histograms (channels-major),
-    with (AH', AW') = padded_dims(atlas_h, atlas_w); the logical atlas
-    occupies [:atlas_h, :atlas_w]."""
+@functools.partial(
+    jax.jit, static_argnames=("tile", "num_warps", "interpret"))
+def _blit(frames, positions, dots, tile, num_warps, interpret):
     f, h, w = frames.shape
-    ah, aw = padded_dims(atlas_h, atlas_w)
-    if dots is None:
-        dots = jnp.zeros((DEPTH, ah, aw), jnp.uint16)
-
-    base = jnp.stack(
-        [
-            (positions[:, 0] // LANE) * LANE,
-            (positions[:, 1] // SUB) * SUB,
-        ],
-        axis=-1,
-    )
-    rx = positions[:, 0] - base[:, 0]
-    ry = positions[:, 1] - base[:, 1]
-
-    # residual placement by rolling padded frames (unaligned work stays in
-    # XLA, where dynamic shifts are unconstrained)
-    fh = ((h + SUB + SUB - 1) // SUB) * SUB
-    fw = ((w + LANE + LANE - 1) // LANE) * LANE
-
-    def prep(img, ok, sx, sy):
-        p = jnp.full((fh, fw), 16, jnp.int32)
-        p = p.at[:h, :w].set(
-            jnp.where(ok != 0, img.astype(jnp.int32), jnp.int32(16))
-        )
-        return jnp.roll(p, (sy, sx), axis=(0, 1))
-
-    pf = jax.vmap(prep)(frames, vote_ok, rx, ry)
-
-    # pad the frame count to a group multiple with no-vote frames
-    group, groups = _pick_tiling(ah, aw, fh, fw)
-    n_groups = -(-f // group)
-    fpad = n_groups * group - f
-    if fpad:
-        pf = jnp.concatenate(
-            [pf, jnp.full((fpad, fh, fw), 16, jnp.int32)], axis=0
-        )
-        base = jnp.concatenate(
-            [base, jnp.zeros((fpad, 2), jnp.int32)], axis=0
-        )
-    pf = pf.reshape(n_groups, group, fh, fw)
-
-    gdepth = DEPTH // groups
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(groups, n_groups),
-        in_specs=[
-            pl.BlockSpec(
-                (1, group, fh, fw),
-                lambda g, b, base: (b, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((gdepth, ah, aw), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )
+    ah, aw, _ = dots.shape
+    th, tw = tile
     out = pl.pallas_call(
-        _make_blit_kernel(gdepth, group),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((DEPTH, ah, aw), jnp.int32),
-    )(base, pf)
-    # uint16 modular conversion reproduces the reference's wrap-around
-    return out.astype(jnp.uint16) + dots
+        functools.partial(_kernel, f=f, h=h, w=w, ah=ah, aw=aw, th=th,
+                          tw=tw),
+        grid=(pl.cdiv(ah, th), pl.cdiv(aw, tw)),
+        out_shape=jax.ShapeDtypeStruct((ah * aw * DEPTH,), jnp.uint16),
+        input_output_aliases={2: 0},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="fgm_blit",
+    )(positions.reshape(-1), frames.reshape(-1), dots.reshape(-1))
+    return out.reshape(ah, aw, DEPTH)
+
+
+def blit_frames(frames: jax.Array, positions: jax.Array, dots: jax.Array,
+                masks: jax.Array | None = None, tile=TILE,
+                num_warps: int = NUM_WARPS) -> jax.Array:
+    """Add the colour votes of [F, H, W] uint8 ``frames`` placed at
+    [F, 2] (x, y) ``positions`` into the [AH, AW, 16] uint16 canvas
+    ``dots``; pixels vote where ``masks`` is 0 (all, without masks).
+    Compiled on a GPU, interpreted elsewhere."""
+    if frames.shape[0] >= 1 << 16:
+        raise ValueError("one blit call takes fewer than 2^16 frames")
+    if masks is not None:
+        frames = jnp.where(masks == 0, frames, jnp.uint8(NO_VOTE))
+    return _blit(frames, positions.astype(jnp.int32), dots,
+                 tile=tuple(tile), num_warps=num_warps,
+                 interpret=backend.interpret())

@@ -1,324 +1,166 @@
-"""Pallas TPU kernel: fused keypoint/median extraction (kpe.hpp's core).
+"""Triton kernel: fused keypoint/median extraction (kpe.hpp's core).
 
-One VMEM-resident pass per frame (or per row band) computes everything
-ops.kpe.extract_dense does — 16-bin ordered histograms over 3x3/5x5 boxes
-(as shifted adds), median-from-top ranks, keypoint weights, and packed
-descriptor codes — without materializing the 16-channel one-hot planes in
-HBM.  Everything is int32 (Mosaic dislikes sub-32-bit layouts;
-nibble-packed codes reinterpret exactly as the uint32 words of
-spec.kpe.pack_code).
+The XLA form (``ops.kpe._extract_dense``) expands every frame into a
+[B, H, W, 16] one-hot, two box-sum planes and a reversed cumsum, each a
+round trip through device memory.  Here one program owns a TH x TW tile
+of one frame and keeps everything in registers: it reads the 25
+neighbours of each pixel (the 5x5 window, kpe.hpp:16-17) with masked
+loads, so the 2-pixel halo comes from the neighbouring tiles' bytes in
+L1/L2, and writes only the outputs — median, weight and four code words,
+18 bytes per pixel.
 
-The rank walk is a ``fori_loop`` with explicit carries (five planes), not
-an unrolled chain — unrolling kept every iteration's temporaries live on
-the kernel "stack" and blew the 16 MB VMEM budget on large frames.  The
-ordered->native permutation rides in as a scalar-prefetch table.
+- Palette lookups (native <-> luminance-ordered code) are 16-entry
+  nibble tables packed into two int32 words each, so a lookup is a
+  select, a shift and a mask.
+- The 3x3 and 5x5 rank histograms ride as 16 8-bit counters packed four
+  per int32 (a window holds at most 25 pixels), so each neighbour costs
+  four selects and adds.
+- The median-from-the-top walk (kpe.hpp:326-340) is straight-line code
+  over the 16 ranks.
 
-Two dispatch shapes:
-
-- **whole-frame** (grid = one program per frame) for frames that fit the
-  VMEM working set (~20 int32 planes), i.e. up to ~C64 size;
-- **row-banded** (grid = one program per (frame, band)) for anything
-  larger: frames are split into ``tile_h``-row bands with a 2-px halo on
-  each side (the 5x5 window's reach, kpe.hpp:207-306 streams rows the
-  same way), gathered into an overlapping band stack, and each program
-  writes only its interior rows.  Bit-exact vs the whole-frame kernel
-  within the processed bounds.
-
-Border wraparound from the rolled shifts only corrupts pixels the wrapper
-masks out (outside the processed bounds, core.regions); band halos are
-zero-padded at the frame's top/bottom edges, which also lies outside the
-processed y range.
+Pixels outside the frame contribute no count and read as colour 0 in
+the code words, exactly as the XLA form's zero padding of the one-hot
+planes and the image: the outputs are bit-equal to it everywhere, not
+only inside the processed bounds.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from remap_tpu.core import palette
+from remap_tpu.ops.kpe import DenseExtract
+from remap_tpu.utils import backend
 
 HALF3 = 4   # kpe.hpp:313
 HALF5 = 12  # kpe.hpp:317
-HALO = 2    # kernel half-width: the 5x5 window reaches 2 px (kpe.hpp:16-17)
+KH = 2      # the 5x5 window reaches 2 px
 
-# max int32 plane elements the whole-frame kernel may hold in VMEM
-# (~20 live planes x 4 B => ~10 MB of the 16 MB budget), measured in
-# LANE-PADDED elements: Mosaic pads the last dim to 128 lanes, so a
-# 312x388 frame occupies 312x512 (the padding is what tipped C64-size
-# whole-frame dispatches 8 KB over the 16 MB budget).  120_000 held for
-# frame-shaped dispatches but tipped 336 KB over the scoped-vmem limit
-# on session-scale splice canvases (tile 32 x width 3328, BASELINE
-# config 4's 100k run) — the shave to 108_000 keeps ~10% headroom;
-# tile choice is mechanical, results are tile-independent (tested)
-_SINGLE_CAP = 108_000
+#: tile of one program: 256 pixels over 4 warps, 2 per thread (the
+#: fastest of nine tiles from 4x128 to 32x64 timed on an H100 at 256x240
+#: and 388x312; larger tiles hold more live counters per thread)
+TILE = (8, 32)
+NUM_WARPS = 4
 
 
-def _roll2(a, dy, dx):
-    """out[y, x] = a[y + dy, x + dx] (wraps; borders are masked later)."""
-    if dy:
-        a = jnp.roll(a, -dy, 0)
-    if dx:
-        a = jnp.roll(a, -dx, 1)
-    return a
+def pack_table(table: np.ndarray) -> tuple[int, int]:
+    """16 nibbles -> (entries 0-7, entries 8-15) as signed int32 words."""
+    words = []
+    for half in (table[:8], table[8:]):
+        v = sum(int(x) << (4 * i) for i, x in enumerate(half))
+        words.append(v - (1 << 32) if v >= 1 << 31 else v)
+    return words[0], words[1]
 
 
-def _compute_planes(tab_ref, frame, emit):
-    """Core fused computation on one [H, W] int32 plane.
+def _lookup(lo: int, hi: int, v: jax.Array) -> jax.Array:
+    """table[v] for v in [0, 16) from its packed words (int32)."""
+    word = jnp.where(v < 8, jnp.int32(lo), jnp.int32(hi))
+    return (word >> ((v & 7) * 4)) & 15
 
-    Rows/cols within HALO of the plane edge are garbage (wraparound),
-    callers mask or crop.  Results stream out through ``emit(kind, plane)``
-    with kind in {"median", "weight", 0..3} — writing each plane as it is
-    produced keeps the VMEM working set small (holding all four code
-    words live tipped C64-size frames over the 16 MB budget).
 
-    Histograms ride **bit-packed**: the 16 ordered-rank bins live as
-    5-bit fields (max window count 25 < 32) packed six-per-int32 across
-    three planes, so the separable 3x3/5x5 window sums run once over 3
-    planes instead of once per rank — the TPU form of the reference's
-    two-histograms-in-one-__m256i trick (kpe.hpp:20-66), rotated from
-    16xuint8 lanes into 6x5-bit fields.  The median rank walk then
-    unpacks counts top-down as straight-line code (no loop carries).
-    """
-    zero = jnp.zeros_like(frame)
+def _kernel(img_ref, med_ref, wgt_ref, codes_ref, *, n, h, w, th, tw,
+            tabs):
+    n2o_lo, n2o_hi, o2n_lo, o2n_hi = tabs
+    b = pl.program_id(0)
+    ys = pl.program_id(1) * th + jax.lax.broadcasted_iota(
+        jnp.int32, (th, tw), 0)
+    xs = pl.program_id(2) * tw + jax.lax.broadcasted_iota(
+        jnp.int32, (th, tw), 1)
+    base = b * (h * w)
 
-    # equality masks drive both the rank image and the packed one-hots
-    p1r = zero
-    packed = [zero, zero, zero]
-    for r in range(16):
-        eq = jnp.where(frame == tab_ref[r], jnp.int32(1), jnp.int32(0))
-        if r:
-            p1r = p1r + r * eq
-        j, off = divmod(r, 6)
-        packed[j] = packed[j] + (eq << (5 * off))
+    zero = jnp.zeros((th, tw), jnp.int32)
+    h3 = [zero] * 4          # ranks 4j..4j+3 as 8-bit counters
+    h5 = [zero] * 4
+    words = [jnp.zeros((th, tw), jnp.uint32)] * 4
+    p1 = zero
+    for k in range(25):
+        dy, dx = k // 5 - KH, k % 5 - KH
+        y, x = ys + dy, xs + dx
+        ok = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+        off = base + jnp.clip(y, 0, h - 1) * w + jnp.clip(x, 0, w - 1)
+        v = plgpu.load(img_ref.at[off], mask=ok, other=0).astype(jnp.int32)
+        o = _lookup(n2o_lo, n2o_hi, v)
+        inc = jnp.where(ok, jnp.int32(1) << ((o & 3) * 8), 0)
+        j = o >> 2
+        for q in range(4):
+            add = jnp.where(j == q, inc, 0)
+            h5[q] = h5[q] + add
+            if abs(dy) <= 1 and abs(dx) <= 1:
+                h3[q] = h3[q] + add
+        if dy == 0 and dx == 0:
+            p1 = o
+        words[k // 8] = words[k // 8] | (
+            v.astype(jnp.uint32) << (4 * (k % 8)))
 
-    def boxsums(p):
-        row3 = p + _roll2(p, 0, -1) + _roll2(p, 0, 1)
-        row5 = row3 + _roll2(p, 0, -2) + _roll2(p, 0, 2)
-        box3 = row3 + _roll2(row3, -1, 0) + _roll2(row3, 1, 0)
-        box5 = row5 + _roll2(row5, -1, 0) + _roll2(row5, 1, 0)
-        box5 = box5 + _roll2(row5, -2, 0) + _roll2(row5, 2, 0)
-        return box3, box5
-
-    sums = [boxsums(p) for p in packed]
-
-    # median-from-top: unpack each rank's 5-bit count, accumulate
-    # cnt_ge, count ranks where cnt_ge >= half (kpe.hpp:326-340)
-    acc3, acc5, p3cnt, p5cnt = zero, zero, zero, zero
+    # cnt_ge(r) >= half holds exactly for r <= median rank, so the
+    # number of such ranks is rank + 1 (kpe.hpp:326-340)
+    acc3, acc5, c3, c5 = zero, zero, zero, zero
     for r in range(15, -1, -1):
-        j, off = divmod(r, 6)
-        acc3 = acc3 + ((sums[j][0] >> (5 * off)) & 31)
-        acc5 = acc5 + ((sums[j][1] >> (5 * off)) & 31)
-        p3cnt = p3cnt + jnp.where(acc3 >= HALF3, 1, 0)
-        p5cnt = p5cnt + jnp.where(acc5 >= HALF5, 1, 0)
+        q, sh = r >> 2, (r & 3) * 8
+        acc3 = acc3 + ((h3[q] >> sh) & 255)
+        acc5 = acc5 + ((h5[q] >> sh) & 255)
+        c3 = c3 + jnp.where(acc3 >= HALF3, 1, 0)
+        c5 = c5 + jnp.where(acc5 >= HALF5, 1, 0)
+    p3 = c3 - 1
+    p5 = c5 - 1
 
-    # cnt_ge(r) >= half holds exactly for r <= median rank (descending
-    # accumulation), so the true count is rank + 1 (kpe.hpp:326-340)
-    p3 = p3cnt - 1
-    p5 = p5cnt - 1
-
-    # median image back in native codes
-    def med_step(r, med):
-        return med + jnp.where(p3 == r, tab_ref[r], 0)
-
-    median = jax.lax.fori_loop(0, 16, med_step, zero)
-    emit("median", median)
-
-    is_kp = (p1r != p3) & (p3 != p5)
+    median = _lookup(o2n_lo, o2n_hi, p3)
     weight = jnp.where(
-        is_kp, jnp.where(p1r != p5, jnp.int32(2), jnp.int32(1)), 0
+        (p1 != p3) & (p3 != p5), jnp.where(p1 != p5, 2, 1), 0
     )
-    emit("weight", weight)
+    words[3] = words[3] | (weight.astype(jnp.uint32) << 4)
 
-    # packed codes: nibble k of the 5x5 patch -> word k//8, bit 4*(k%8)
-    for widx in range(4):
-        acc = zero
-        for slot in range(8):
-            k = widx * 8 + slot
-            if k >= 25:
-                break
-            dy, dx = k // 5 - 2, k % 5 - 2
-            acc = acc | (_roll2(frame, dy, dx) << (4 * slot))
-        if widx == 3:
-            acc = acc | (weight << 4)
-        emit(widx, acc)
+    # lanes past the frame edge point past the array's end: masked off
+    # on the GPU, dropped by the interpreter's scatter, never aliasing
+    # a real pixel
+    inside = (ys < h) & (xs < w)
+    pix = jnp.where(inside, base + ys * w + xs, n)
+    plgpu.store(med_ref.at[pix], median.astype(jnp.uint8), mask=inside)
+    plgpu.store(wgt_ref.at[pix], weight.astype(jnp.uint8), mask=inside)
+    for k in range(4):
+        plgpu.store(codes_ref.at[pix * 4 + k], words[k], mask=inside)
 
 
-def _extract_kernel(tab_ref, frame_ref, median_ref, weight_ref, codes_ref):
-    def emit(kind, plane):
-        if kind == "median":
-            median_ref[0] = plane
-        elif kind == "weight":
-            weight_ref[0] = plane
-        else:
-            codes_ref[0, kind] = plane
-
-    _compute_planes(tab_ref, frame_ref[0], emit)
-
-
-def _band_kernel(tile_h, tab_ref, band_ref, median_ref, weight_ref,
-                 codes_ref):
-    sl = slice(HALO, HALO + tile_h)
-
-    def emit(kind, plane):
-        if kind == "median":
-            median_ref[0] = plane[sl]
-        elif kind == "weight":
-            weight_ref[0] = plane[sl]
-        else:
-            codes_ref[0, kind] = plane[sl]
-
-    _compute_planes(tab_ref, band_ref[0], emit)
-
-
-class PallasExtract(NamedTuple):
-    median: jax.Array   # [B, H, W] uint8
-    weight: jax.Array   # [B, H, W] uint8
-    codes: jax.Array    # [B, H, W, 4] uint32
-
-
-def _padded_w(w: int) -> int:
-    return -(-w // 128) * 128
-
-
-def pick_tile(h: int, w: int) -> Optional[int]:
-    """Band height for (h, w), or None when the whole frame fits VMEM.
-
-    Picks the fewest bands that fit the budget, then evens the band
-    height across them (rounded up to the 8-row sublane), so a frame just
-    over the cap splits into two near-halves instead of many small tiles.
-    """
-    pw = _padded_w(w)
-    if h * pw <= _SINGLE_CAP:
-        return None
-    tile_max = _SINGLE_CAP // pw - 2 * HALO
-    tile_max -= tile_max % 8
-    if tile_max < 8:
-        return None
-    n_bands = -(-h // tile_max)
-    tile = -(-h // n_bands)
-    tile += (-tile) % 8
-    return min(tile, tile_max)
-
-
-def supports(h: int, w: int) -> bool:
-    """True if some Pallas dispatch shape exists for this frame size."""
-    return h * _padded_w(w) <= _SINGLE_CAP or pick_tile(h, w) is not None
-
-
-@jax.jit
-def _extract_whole(images: jax.Array) -> PallasExtract:
+@functools.partial(
+    jax.jit, static_argnames=("tabs", "tile", "num_warps", "interpret"))
+def _extract(images, tabs, tile, num_warps, interpret):
     b, h, w = images.shape
-    f32 = images.astype(jnp.int32)
-    tab = jnp.asarray(palette.ORDERED_TO_NATIVE.astype(np.int32))
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(b,),
-        in_specs=[
-            pl.BlockSpec((1, h, w), lambda i, tab: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, h, w), lambda i, tab: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, h, w), lambda i, tab: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 4, h, w), lambda i, tab: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-    )
+    th, tw = tile
+    grid = (b, pl.cdiv(h, th), pl.cdiv(w, tw))
+    n = b * h * w
     median, weight, codes = pl.pallas_call(
-        _extract_kernel,
-        grid_spec=grid_spec,
+        functools.partial(_kernel, n=n, h=h, w=w, th=th, tw=tw, tabs=tabs),
+        grid=grid,
         out_shape=(
-            jax.ShapeDtypeStruct((b, h, w), jnp.int32),
-            jax.ShapeDtypeStruct((b, h, w), jnp.int32),
-            jax.ShapeDtypeStruct((b, 4, h, w), jnp.int32),
+            jax.ShapeDtypeStruct((n,), jnp.uint8),
+            jax.ShapeDtypeStruct((n,), jnp.uint8),
+            jax.ShapeDtypeStruct((n * 4,), jnp.uint32),
         ),
-    )(tab, f32)
-    return PallasExtract(
-        median=median.astype(jnp.uint8),
-        weight=weight.astype(jnp.uint8),
-        codes=codes.transpose(0, 2, 3, 1).astype(jnp.uint32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="kpe_extract",
+    )(images.reshape(n))
+    return DenseExtract(
+        median=median.reshape(b, h, w),
+        weight=weight.reshape(b, h, w),
+        codes=codes.reshape(b, h, w, 4),
     )
 
 
-@functools.partial(jax.jit, static_argnames=("tile_h",))
-def _extract_banded(images: jax.Array, tile_h: int) -> PallasExtract:
-    """Row-banded dispatch: [B, H, W] -> bands [B*T, tile_h+2*HALO, W]."""
-    b, h, w = images.shape
-    t = -(-h // tile_h)
-    hp = t * tile_h
-    f32 = images.astype(jnp.int32)
-    tab = jnp.asarray(palette.ORDERED_TO_NATIVE.astype(np.int32))
-
-    padded = jnp.pad(f32, ((0, 0), (HALO, hp - h + HALO), (0, 0)))
-    hb = tile_h + 2 * HALO
-    # static slices, not a row gather — gathers cost ~15 ns/element on
-    # this hardware and dominated the banded dispatch when first measured
-    bands = jnp.stack(
-        [
-            jax.lax.slice_in_dim(padded, i * tile_h, i * tile_h + hb, axis=1)
-            for i in range(t)
-        ],
-        axis=1,
-    ).reshape(b * t, hb, w)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(b * t,),
-        in_specs=[
-            pl.BlockSpec((1, hb, w), lambda i, tab: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, tile_h, w), lambda i, tab: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_h, w), lambda i, tab: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 4, tile_h, w), lambda i, tab: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-    )
-    median, weight, codes = pl.pallas_call(
-        functools.partial(_band_kernel, tile_h),
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((b * t, tile_h, w), jnp.int32),
-            jax.ShapeDtypeStruct((b * t, tile_h, w), jnp.int32),
-            jax.ShapeDtypeStruct((b * t, 4, tile_h, w), jnp.int32),
-        ),
-    )(tab, bands)
-
-    median = median.reshape(b, hp, w)[:, :h]
-    weight = weight.reshape(b, hp, w)[:, :h]
-    codes = (
-        codes.reshape(b, t, 4, tile_h, w)
-        .transpose(0, 2, 1, 3, 4)
-        .reshape(b, 4, hp, w)[:, :, :h]
-    )
-    return PallasExtract(
-        median=median.astype(jnp.uint8),
-        weight=weight.astype(jnp.uint8),
-        codes=codes.transpose(0, 2, 3, 1).astype(jnp.uint32),
-    )
-
-
-def extract_dense_raw(
-    images: jax.Array, band_h: Optional[int] = None
-) -> PallasExtract:
-    """[B, H, W] uint8 -> unmasked dense extraction (borders garbage).
-
-    Dispatches whole-frame for VMEM-sized frames, row-banded beyond
-    (``band_h`` forces a specific band height — used by tests)."""
-    _, h, w = images.shape
-    tile = band_h if band_h is not None else pick_tile(h, w)
-    if tile is None:
-        return _extract_whole(images)
-    return _extract_banded(images, tile_h=tile)
+def extract_dense_raw(images: jax.Array, tile=TILE,
+                      num_warps: int = NUM_WARPS) -> DenseExtract:
+    """[B, H, W] uint8 -> unmasked dense extraction, bit-equal to
+    ``ops.kpe._extract_dense`` (compiled on a GPU, interpreted
+    elsewhere)."""
+    tabs = pack_table(palette.NATIVE_TO_ORDERED) + pack_table(
+        palette.ORDERED_TO_NATIVE)
+    return _extract(images, tabs=tabs, tile=tuple(tile),
+                    num_warps=num_warps, interpret=backend.interpret())

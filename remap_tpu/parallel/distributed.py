@@ -1,16 +1,15 @@
-"""Multi-host (DCN) runtime wiring.
+"""Multi-process runtime wiring.
 
-The reference is a single process (SURVEY.md §2 parallelism audit); the
-TPU framework scales across hosts the JAX way: every process calls
+The reference is a single process (SURVEY.md §2 parallelism audit); here
+the work scales across processes the JAX way: every process calls
 ``jax.distributed.initialize`` (gRPC coordination service), after which
 ``jax.devices()`` is the *global* device list and ``parallel.mesh.
-make_mesh`` builds pod-wide meshes from it unchanged.  Frames enter
-per-host (each host feeds its local clips), collectives ride ICI within a
-slice and DCN only at stage boundaries — BASELINE.json config 5.
+make_mesh`` builds meshes over all processes' devices unchanged.  Frames
+enter per process (each feeds its local clips); collectives cross
+processes only at stage boundaries — BASELINE.json config 5.
 
-On real TPU pods all three parameters are auto-detected from the
-environment; they only need to be spelled out for fake-DCN setups (CPU
-processes in tests) or nonstandard clusters.
+Nothing detects a cluster: each process passes the coordinator's
+``host:port``, the process count and its own id.
 """
 
 from __future__ import annotations

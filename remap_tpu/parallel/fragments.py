@@ -4,7 +4,7 @@ a device mesh.
 The reference runs three stages task-parallel over fragments with
 ``std::execution::par``: arf per fragment (mpb.hpp:82), fdf's background
 blends (fdf.hpp:24), and fgs's snippet extraction (fgs.hpp:98).  Here
-fragments are INDEPENDENT device programs, so the TPU translation is
+fragments are INDEPENDENT device programs, so the translation is
 round-robin device placement: fragment i's whole program chain runs on
 ``devices[i % N]``, dispatched asynchronously, fetched after every
 fragment has been dispatched.  One chip behaves exactly as before

@@ -1,18 +1,21 @@
-"""Device meshes and shardings for multi-chip runs.
+"""Device meshes and shardings for multi-device runs.
 
 The reference is a single process with three thread-parallel transforms
 (SURVEY.md §2: mpb.hpp:82, fdf.hpp:24, fgs.hpp:98) and no distributed
-layer.  The TPU framework scales two ways instead:
+layer.  Here the work scales two ways instead:
 
 - **data parallelism over clips** (``data`` axis): independent gameplay
-  clips batch across chips — BASELINE.json config 3 ("vmap over 8 clips").
+  clips batch across devices — BASELINE.json config 3 ("vmap over 8
+  clips").
 - **spatial parallelism over frame rows** (``space`` axis): for high-res
-  captures (config 5, 640x480 over a pod slice), extraction/blit shard the
-  H dimension; XLA inserts halo collective-permutes for the 5x5 window
-  sums crossing shard edges.
+  captures (config 5, 640x480), extraction/blit shard the H dimension;
+  XLA inserts halo collective-permutes for the 5x5 window sums crossing
+  shard edges.
 
-Collectives ride ICI within the mesh; there is no cross-host traffic in
-the hot loop (frames enter per-host, fragments exit per-clip).
+The mesh is a plain ('data', 'space') grid: the cards of one host reach
+each other all to all (NVLink), so the layout follows the algorithm
+alone.  There is no cross-host traffic in the hot loop (frames enter
+per host, fragments exit per clip).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Map builder: the five-stage orchestrator (mpb.hpp:28-41 on TPU).
+"""Map builder: the five-stage orchestrator (mpb.hpp:28-41).
 
 ``build()`` = window scan -> cropped re-feed -> collect -> splice ->
 foreground filter -> artifact clean -> native-code map images.  Every

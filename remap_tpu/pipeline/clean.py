@@ -1,9 +1,9 @@
-"""Artifact-clean stage (mpb.hpp:79-94 on TPU).
+"""Artifact-clean stage (mpb.hpp:79-94).
 
 Per fragment: blend, rare-pattern heatmap, conditional Gaussian color
 re-selection (ops.arf), then crop the canvas's empty margins
 (arf.hpp:314-328).  Fragments are independent — the reference used a CPU
-thread pool here; on TPU each fragment is one device program and multiple
+thread pool here; on the device each fragment is one program and multiple
 fragments simply queue.
 """
 

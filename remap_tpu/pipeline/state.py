@@ -54,24 +54,19 @@ class FrameStore:
     ``device_packed_medians``), the store additionally keeps
     device-resident mirrors so later passes (blit, foreground) gather
     frames and medians from HBM instead of re-crossing the
-    host->device link — the TPU-native answer to the reference's
+    host->device link — the device-resident answer to the reference's
     keep-everything-in-RAM design (frc.hpp:129-135, nic.hpp:8-166).
     The mirrors are bounded by ``device_budget`` bytes (combined) and
     silently drop for sessions that exceed it — every consumer falls
     back to uploading the host copy.  ``PipelineConfig.frame_store``
-    selects the budget: "hbm" sizes it for session scale (a 100k NES
-    session is ~6.2 GB packed, v5e-class HBM holds it), "host" disables
-    the mirrors, "auto" picks by platform."""
+    selects the budget (utils.backend.store_budget): "hbm" sizes it for
+    session scale, a share of the device's memory limit (a 100k NES
+    session is ~6.2 GB packed), "host" disables the mirrors, "auto" is
+    "hbm" on an accelerator and "host" on the CPU."""
 
-    #: conservative default mirror budget (bytes of packed frames +
-    #: medians); ~17k NES frames.  ``frame_store="hbm"`` raises it to
-    #: HBM_STORE_BUDGET.
+    #: default mirror budget (bytes of packed frames + medians), ~17k NES
+    #: frames; also the "hbm" budget of a device that reports no limit
     DEVICE_MIRROR_CAP = 512 << 20
-
-    #: session-scale budget for ``frame_store="hbm"``: 10 GB of the
-    #: 16 GB v5e-class HBM (the streaming/collect working set needs
-    #: the rest)
-    HBM_STORE_BUDGET = 10 << 30
 
     def __init__(self, height: int, width: int, device_budget=None):
         self.height = height
@@ -272,7 +267,7 @@ def pack_nibbles_batch(imgs: np.ndarray) -> np.ndarray:
 def pack_nibbles_device(imgs):
     """Device-side pack_nibbles_batch (jit-traceable, any leading dims):
     packing BEFORE the device->host download halves the median traffic
-    collect pays per batch on link-bound harnesses."""
+    collect pays per batch."""
     import jax.numpy as jnp
 
     if imgs.shape[-1] % 2:
@@ -297,12 +292,11 @@ class Fragment:
     after :meth:`normalize` all record positions are canvas indices.
 
     The canvas may be **device-resident**: a session-scale [H, W, 16]
-    uint16 canvas is ~0.5 GB, and on link-bound harnesses every
-    host<->device crossing of it costs tens of seconds — the round-4
-    100k contract paid the link FIVE times between collect and clean
-    (download, splice upload, merged re-upload, foreground round-trip,
-    clean upload).  Stages that produce the canvas on device
-    (collect.blit_pass, foreground) hand it over as ``dots_dev``; stages
+    uint16 canvas is ~0.5 GB, and keeping it on the device spares five
+    host<->device crossings between collect and clean (download, splice
+    upload, merged re-upload, foreground round-trip, clean upload).
+    Stages that produce the canvas on device (collect.blit_pass,
+    foreground) hand it over as ``dots_dev``; stages
     that consume it on device call :meth:`device_dots`.  Reading
     ``.dots`` lazily materializes (downloads) the host copy — the
     checkpoint writer and NumPy-level tests see the exact same array

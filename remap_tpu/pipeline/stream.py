@@ -8,8 +8,8 @@ packed host store, and ``finish()`` segments positions and scatter-blits
 the fragments.  Peak device memory is O(batch); host memory is the packed
 store (2 bytes/pixel for frame+median — ~3.7 GB per 100k NES frames).
 
-The fully device-resident single-window variant (atlas carried in VMEM/
-HBM across batches, no host store) is ``parallel.sharded.
+The fully device-resident single-window variant (atlas carried in device
+memory across batches, no host store) is ``parallel.sharded.
 make_streaming_step`` — used by bench.py and appropriate when fragment
 breaks are known not to occur mid-window.
 
@@ -31,7 +31,7 @@ import numpy as np
 from remap_tpu.config import PipelineConfig
 from remap_tpu.core.regions import make_layout
 from remap_tpu.pipeline import collect as collect_mod
-from remap_tpu.pipeline.state import Fragment, FrameStore
+from remap_tpu.pipeline.state import Fragment
 
 
 class StreamingStitcher:
@@ -47,9 +47,7 @@ class StreamingStitcher:
             collect_mod._empty_carry(self.layout, cfg.region_capacity),
             jnp.zeros((1, h, w), jnp.uint8),
         )
-        self.store = FrameStore(
-            h, w, device_budget=collect_mod._store_budget(cfg)
-        )
+        self.store = collect_mod.new_store(h, w, cfg)
         self.frame_no = 0
         self._offsets: List[np.ndarray] = []
         self._matched: List[np.ndarray] = []
@@ -95,7 +93,7 @@ class StreamingStitcher:
         self.range_overflow_frames += int(rovf.sum())
         # the step's medians arrive packed (collect packs on device
         # before the d2h download); frames pack here — they never
-        # crossed the link in this direction
+        # came back from the device
         self.store.put_packed_batch(
             list(range(self.frame_no, self.frame_no + n_real)),
             collect_mod.pack_nibbles_batch(np.asarray(batch[:n_real])),

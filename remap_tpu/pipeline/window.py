@@ -1,4 +1,4 @@
-"""Action-window scan stage (aws.hpp:98-156 on TPU).
+"""Action-window scan stage (aws.hpp:98-156).
 
 Frames stream through the device in batches: one small program advances
 the persistent equality heatmap for the whole batch and flags which frames
@@ -36,8 +36,7 @@ def scan(
     cfg: PipelineConfig,
 ) -> Optional[WindowInfo]:
     """The scan upload is overlapped and bounded like collect's feed
-    (aws.hpp:98-156 walls otherwise swing with ambient link load,
-    round-4 verdict weak #5): frames cross the link packed (2 px/byte,
+    (aws.hpp:98-156): frames upload packed (2 px/byte,
     straight off the native reader when the source is a feed), a worker
     thread prefetches batch n+1 while the device scans batch n, and the
     host state machine drains one batch behind the dispatch — at most

@@ -366,6 +366,39 @@ class Session:
     world: np.ndarray
 
 
+def world_agreement(maps_rgb, session: Session) -> Tuple[float, float]:
+    """Best-alignment agreement of the largest RGB map with the world.
+
+    The map should be the union of visited views of the (sprite-free)
+    world — except the all-zero ring the artifact filter leaves
+    unprocessed at canvas edges (arf.hpp:274-303).  The exact crop
+    origin depends on aws's contour bounds, so a small neighbourhood
+    around the known camera extent is searched.  Returns (best agreement
+    over painted map pixels, painted share of the canvas at that
+    alignment)."""
+    from remap_tpu.core import palette
+
+    cam = np.array(session.camera)
+    world_rgb = palette.NATIVE_TO_RGB[session.world]
+    m = max(maps_rgb, key=lambda a: a.size)
+    mh, mw = m.shape[:2]
+    painted = (m != 0).any(axis=-1)
+    y0 = cam[:, 1].min()
+    x0 = cam[:, 0].min()
+    best = (0.0, 0.0)
+    wh, ww = world_rgb.shape[:2]
+    for dy in range(-2, 7):
+        for dx in range(-2, 7):
+            yy, xx = y0 + dy, x0 + dx
+            if yy < 0 or xx < 0 or yy + mh > wh or xx + mw > ww:
+                continue
+            crop = world_rgb[yy : yy + mh, xx : xx + mw]
+            agree = float((crop == m).all(axis=-1)[painted].mean())
+            if agree > best[0]:
+                best = (agree, float(painted.mean()))
+    return best
+
+
 def _policy(rng: np.random.Generator, n: int) -> List[Tuple[int, bool]]:
     """Seeded 'player inputs': (walk direction, jump pressed) per frame.
     Direction persists for runs of frames — like a human holding right."""

@@ -3,7 +3,7 @@
 The reference's only observability is a wall-clock fps counter printed
 every N callback invocations (main.cpp:54-110); :class:`PerfCounter`
 provides the same step/total-average readout.  ``device_trace`` wraps
-``jax.profiler`` for real TPU traces.
+``jax.profiler`` for device traces.
 """
 
 from __future__ import annotations

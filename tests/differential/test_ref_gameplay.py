@@ -55,38 +55,9 @@ FW, FH = 388, 312     # the reference's fixed screen (main.cpp:199)
 
 
 def _world_truth_agreement(our_maps, session) -> Tuple[float, float]:
-    """Best-alignment agreement of the largest map with the world.
-
-    The map should be the union of visited views of the (sprite-free)
-    world — except the all-zero ring the artifact filter leaves
-    unprocessed at canvas edges (arf.hpp:274-303; see the verify-skill
-    gotcha).  The exact crop origin depends on aws's contour bounds, so
-    search a small alignment neighbourhood around the known camera
-    extent.  Returns (best agreement over non-zero map pixels, non-zero
-    coverage at that alignment)."""
-    from remap_tpu.core import palette
-
-    cam = np.array(session.camera)
-    world_rgb = palette.NATIVE_TO_RGB[session.world]
-    m = max(our_maps, key=lambda a: a.size)
-    mh, mw = m.shape[:2]
-    painted = (m != 0).any(axis=-1)
-    y0 = cam[:, 1].min()
-    x0 = cam[:, 0].min()
-    best = (0.0, 0.0)
-    wh, ww = world_rgb.shape[:2]
-    for dy in range(-2, 7):
-        for dx in range(-2, 7):
-            yy, xx = y0 + dy, x0 + dx
-            if yy < 0 or xx < 0 or yy + mh > wh or xx + mw > ww:
-                continue
-            crop = world_rgb[yy : yy + mh, xx : xx + mw]
-            agree = float(
-                (crop == m).all(axis=-1)[painted].mean()
-            )
-            if agree > best[0]:
-                best = (agree, float(painted.mean()))
-    return best
+    """Best-alignment agreement of the largest map with the world
+    (gameplay.world_agreement)."""
+    return gameplay.world_agreement(our_maps, session)
 
 
 @pytest.mark.diffquick

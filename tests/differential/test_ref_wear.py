@@ -9,7 +9,7 @@ model (utils.wear) and assert both pipelines still produce **byte
 -identical maps** — wear pushes the matcher, foreground detector, and
 artifact filter into their recovery regimes (minority-offset votes,
 zero-diff pairs, doubled camera steps, one-frame foreground specks),
-exactly where a semantics mismatch between our TPU formulation and the
+exactly where a semantics mismatch between our device formulation and the
 reference's C++ would surface first.
 
 The world-ground-truth check still applies: the wear model keeps

@@ -144,7 +144,7 @@ def _tables_of(frames, layout, capacity=2048):
 
 @pytest.mark.parametrize("radius", [8, 16, pytest.param(32, marks=pytest.mark.slow)])
 def test_vote_histogram_matches_exact(radius):
-    """The MXU vote histogram agrees with the exact sort path whenever
+    """The matmul vote histogram agrees with the exact sort path whenever
     offsets fit the radius."""
     rng = np.random.default_rng(41)
     world = testing.make_world(200, 260, rng)

@@ -163,105 +163,27 @@ def test_window_scan_ignores_color1_winner():
         assert swin.raw_bounds == jwin.raw_bounds
 
 
-def _stats_from_labels(labels_np, changed_np):
-    """Per-pixel propagated [B, 5, H, W] stats planes (minx, miny, maxx,
-    maxy, chg) synthesized on the host — the convention the Pallas CC
-    stats kernel emits; any consistent synthesis is valid for A/B
-    equality of the two mask-assembly formulations."""
-    b, h, w = labels_np.shape
-    big = h * w
-    out = np.zeros((b, 5, h, w), np.int32)
-    xs = np.arange(big, dtype=np.int32) % w
-    ys = np.arange(big, dtype=np.int32) // w
-    for k in range(b):
-        flat = labels_np[k].reshape(-1)
-        chg = changed_np[k].reshape(-1)
-        o = out[k].reshape(5, -1)
-        for lab in np.unique(flat[flat < big]):
-            m = flat == lab
-            o[0, m] = xs[m].min()
-            o[1, m] = ys[m].min()
-            o[2, m] = xs[m].max()
-            o[3, m] = ys[m].max()
-            o[4, m] = int(chg[m].any())
-    return out
-
-
-def test_masks_from_stats_sorted_equals_original():
-    """The packed-sort + segmented-scan mask assembly must equal the
-    scatter/segment-op original bit-for-bit (same labels, same stats) —
-    including case-B quirky lefts, unset lefts and the area limit."""
+def _reference_masks(meds, labels, changed, limit):
+    """The per-frame ``fde.foreground_mask`` (checked against the spec
+    by test_foreground_mask_matches_spec), vmapped over the batch: the
+    reference for the sorted batch assembly."""
     import jax
     import jax.numpy as jnp
 
     from remap_tpu.ops import cc as cc_ops
     from remap_tpu.ops import fde as fde_ops
 
-    rng = np.random.default_rng(2024)
-    for h, w, tiles in ((24, 31, 3), (17, 16, 2), (40, 60, 5)):
-        meds = []
-        for _ in range(4):
-            base = rng.integers(0, 4, size=(h // tiles + 1, w // tiles + 1))
-            m = np.kron(base, np.ones((tiles, tiles)))[:h, :w]
-            noise = rng.random((h, w)) < 0.15
-            m = np.where(noise, rng.integers(0, 4, size=(h, w)), m)
-            meds.append(m.astype(np.uint8))
-        meds = np.stack(meds)
-        labels = np.asarray(
-            jax.vmap(cc_ops.label_components)(jnp.asarray(meds))
-        )
-        changed = rng.random((4, h, w)) < 0.3
-        stats = _stats_from_labels(labels, changed)
-        limit = (h * w) // 5
-        old = np.asarray(fde_ops._masks_from_stats(
-            jnp.asarray(labels), jnp.asarray(stats), limit
-        ))
-        new = np.asarray(fde_ops._masks_from_stats_sorted(
-            jnp.asarray(labels), jnp.asarray(stats), limit
-        ))
-        np.testing.assert_array_equal(old, new)
-
-
-def test_masks_from_stats_sorted_twokey_equals_original():
-    """Screens with H*W >= 2^16 can't pack (label, pos) into one uint32;
-    the sorted assembly switches to a two-key (label, pos) int32 sort.
-    Equality vs the scatter original at 264x264 (69,696 px) — the size
-    class of the 372x272 gameplay clips, which sit between the 16-bit
-    pack limit and the Pallas stats cap."""
-    import jax
-    import jax.numpy as jnp
-
-    from remap_tpu.ops import cc as cc_ops
-    from remap_tpu.ops import fde as fde_ops
-
-    h, w, tiles = 264, 264, 24
-    rng = np.random.default_rng(11)
-    meds = []
-    for _ in range(2):
-        base = rng.integers(0, 4, size=(h // tiles + 1, w // tiles + 1))
-        m = np.kron(base, np.ones((tiles, tiles)))[:h, :w]
-        noise = rng.random((h, w)) < 0.1
-        m = np.where(noise, rng.integers(0, 4, size=(h, w)), m)
-        meds.append(m.astype(np.uint8))
-    meds = np.stack(meds)
-    labels = np.asarray(
-        jax.vmap(cc_ops.label_components)(jnp.asarray(meds))
-    )
-    changed = rng.random((2, h, w)) < 0.3
-    stats = _stats_from_labels(labels, changed)
-    limit = (h * w) // 5
-    old = np.asarray(fde_ops._masks_from_stats(
-        jnp.asarray(labels), jnp.asarray(stats), limit
-    ))
-    new = np.asarray(fde_ops._masks_from_stats_sorted(
-        jnp.asarray(labels), jnp.asarray(stats), limit
-    ))
-    np.testing.assert_array_equal(old, new)
+    labels = jnp.asarray(labels)
+    qleft = cc_ops.quirky_fill_left_batch(labels)
+    return np.asarray(jax.vmap(
+        lambda m, c, la, q: fde_ops.foreground_mask(
+            m, c, limit, labels=la, fill_left=q)
+    )(jnp.asarray(meds), jnp.asarray(changed), labels, qleft))
 
 
 def test_masks_from_labels_sorted_equals_original():
     """The labels-only sorted assembly (no stats kernel: bbox/changed
-    derived from the sort itself) must equal the scatter original —
+    derived from the sort itself) must equal the per-frame reference —
     small shapes, the >=2^16 two-key path, and random non-tile noise."""
     import jax
     import jax.numpy as jnp
@@ -285,11 +207,8 @@ def test_masks_from_labels_sorted_equals_original():
             jax.vmap(cc_ops.label_components)(jnp.asarray(meds))
         )
         changed = rng.random((nb, h, w)) < 0.3
-        stats = _stats_from_labels(labels, changed)
         limit = (h * w) // 5
-        old = np.asarray(fde_ops._masks_from_stats(
-            jnp.asarray(labels), jnp.asarray(stats), limit
-        ))
+        old = _reference_masks(meds, labels, changed, limit)
         new = np.asarray(fde_ops._masks_from_labels_sorted(
             jnp.asarray(labels), jnp.asarray(changed), limit
         ))
@@ -298,7 +217,7 @@ def test_masks_from_labels_sorted_equals_original():
 
 def test_masks_from_labels_sorted_dense_fallback(monkeypatch):
     """Root counts past the compaction cap: the labels-only dense fill
-    (sorted-order scans, no unpermutes) equals the scatter original."""
+    (sorted-order scans, no unpermutes) equals the per-frame reference."""
     import jax
     import jax.numpy as jnp
 
@@ -311,38 +230,10 @@ def test_masks_from_labels_sorted_dense_fallback(monkeypatch):
         jax.vmap(cc_ops.label_components)(jnp.asarray(meds))
     )
     changed = np.ones((2, 20, 25), bool)
-    stats = _stats_from_labels(labels, changed)
-    old = np.asarray(fde_ops._masks_from_stats(
-        jnp.asarray(labels), jnp.asarray(stats), 500
-    ))
+    old = _reference_masks(meds, labels, changed, 500)
     monkeypatch.setattr(fde_ops, "_ROOT_CAP", 4)
     new = np.asarray(fde_ops._masks_from_labels_sorted(
         jnp.asarray(labels), jnp.asarray(changed), 500
-    ))
-    np.testing.assert_array_equal(old, new)
-
-
-def test_masks_from_stats_sorted_dense_fallback(monkeypatch):
-    """Root counts past the compaction cap take the dense fill — equal."""
-    import jax
-    import jax.numpy as jnp
-
-    from remap_tpu.ops import cc as cc_ops
-    from remap_tpu.ops import fde as fde_ops
-
-    rng = np.random.default_rng(7)
-    meds = rng.integers(0, 8, size=(2, 20, 25), dtype=np.uint8)
-    labels = np.asarray(
-        jax.vmap(cc_ops.label_components)(jnp.asarray(meds))
-    )
-    changed = np.ones((2, 20, 25), bool)
-    stats = _stats_from_labels(labels, changed)
-    old = np.asarray(fde_ops._masks_from_stats(
-        jnp.asarray(labels), jnp.asarray(stats), 500
-    ))
-    monkeypatch.setattr(fde_ops, "_ROOT_CAP", 4)
-    new = np.asarray(fde_ops._masks_from_stats_sorted(
-        jnp.asarray(labels), jnp.asarray(stats), 500
     ))
     np.testing.assert_array_equal(old, new)
 
@@ -351,7 +242,7 @@ def test_masks_per_frame_escalation_mixed_batch(monkeypatch):
     """One poisoned frame in a clean batch rides the static dense
     subset (tier 2 of fde._escalated_fill) while the rest stay on the
     compacted path; above _DENSE_FRAMES the whole batch goes dense
-    (tier 3).  All tiers equal the scatter original per frame."""
+    (tier 3).  All tiers equal the per-frame reference."""
     import jax
     import jax.numpy as jnp
 
@@ -369,10 +260,7 @@ def test_masks_per_frame_escalation_mixed_batch(monkeypatch):
         jax.vmap(cc_ops.label_components)(jnp.asarray(meds))
     )
     changed = np.ones((4, 20, 25), bool)
-    stats = _stats_from_labels(labels, changed)
-    old = np.asarray(fde_ops._masks_from_stats(
-        jnp.asarray(labels), jnp.asarray(stats), 500
-    ))
+    old = _reference_masks(meds, labels, changed, 500)
     monkeypatch.setattr(fde_ops, "_ROOT_CAP", 16)
     over = [
         int((np.unique(labels[i][labels[i] < 20 * 25])).size) > 16
@@ -384,10 +272,6 @@ def test_masks_per_frame_escalation_mixed_batch(monkeypatch):
         if variant == "full":
             # force tier 3: subset capacity below the poisoned count
             monkeypatch.setattr(fde_ops, "_DENSE_FRAMES", 0)
-        new_s = np.asarray(fde_ops._masks_from_stats_sorted(
-            jnp.asarray(labels), jnp.asarray(stats), 500
-        ))
-        np.testing.assert_array_equal(old, new_s, err_msg=variant)
         new_l = np.asarray(fde_ops._masks_from_labels_sorted(
             jnp.asarray(labels), jnp.asarray(changed), 500
         ))

@@ -1,90 +1,32 @@
-"""Pallas kernels validated in interpreter mode (CPU).
+"""Triton kernels checked in the Pallas interpreter (CPU).
 
-The real-TPU compile of these kernels is exercised by bench.py; here the
-kernel logic is checked bit-exactly against the XLA formulations.
+Off the GPU the kernels of ``ops.pallas`` run interpreted
+(``utils.backend.interpret``), so their arithmetic is checked bit for bit
+against the XLA forms here; the compiled kernels are compared with the
+same forms on the card by ``chip_smoke.py``.
 """
 
-import functools
-
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
-from jax.experimental import pallas as pl
 
 
-@pytest.fixture()
-def interpret_pallas(monkeypatch):
-    monkeypatch.setattr(
-        pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
-    )
+def _extract_ref(imgs):
+    from remap_tpu.ops import kpe as jkpe
+
+    _, h, w = imgs.shape
+    return jkpe._extract_dense(jnp.asarray(imgs), height=h, width=w)
 
 
-def test_tables_shift_kernel_matches_topk(interpret_pallas):
-    """The VMEM shift-network table build equals mode="topk" on valid
-    rows and mode="sort2"'s canonicalized invalid rows, across density
-    regimes incl. capacity overflow."""
-    from remap_tpu.core.regions import make_layout
-    from remap_tpu.ops import tables as xtables
-    from remap_tpu.ops.pallas import tables as ptables
-
-    rng = np.random.default_rng(5)
-    h, w = 60, 160
-    layout = make_layout(w, h, 2, 2, 8)
-    capacity = 128
-    assert ptables.supports(layout, h, w, capacity)
-
-    for density, bsz in [(0.05, 3), (0.35, 2), (0.95, 2)]:
-        weight = (rng.random((bsz, h, w)) < density).astype(np.uint8)
-        weight[weight > 0] = rng.integers(
-            1, 3, size=int((weight > 0).sum())
-        )
-        codes = rng.integers(
-            0, 1 << 32, size=(bsz, h, w, 4), dtype=np.uint32
-        )
-        ref = xtables.build_tables(
-            jnp.asarray(weight), jnp.asarray(codes), layout, capacity,
-            mode="topk",
-        )
-        out = ptables.build_tables_pallas(
-            jnp.asarray(weight), jnp.asarray(codes), layout, capacity
-        )
-        np.testing.assert_array_equal(
-            np.asarray(out.valid), np.asarray(ref.valid), err_msg=f"d={density}"
-        )
-        vm = np.asarray(ref.valid)
-        np.testing.assert_array_equal(
-            np.asarray(out.codes)[vm], np.asarray(ref.codes)[vm],
-            err_msg=f"d={density}",
-        )
-        np.testing.assert_array_equal(
-            np.asarray(out.pos)[vm], np.asarray(ref.pos)[vm],
-            err_msg=f"d={density}",
-        )
-        np.testing.assert_array_equal(
-            np.asarray(out.wcounts), np.asarray(ref.wcounts)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(out.overflow), np.asarray(ref.overflow)
-        )
-        # invalid-row canonicalization matches sort2 (code/pos of the
-        # region's first pixel) — full bitwise equality when sort2's
-        # chunk quota isn't tripped
-        if density <= 0.05:
-            ref2 = xtables.build_tables(
-                jnp.asarray(weight), jnp.asarray(codes), layout,
-                capacity, mode="sort2",
-            )
-            if not np.asarray(ref2.overflow).any():
-                np.testing.assert_array_equal(
-                    np.asarray(out.codes), np.asarray(ref2.codes)
-                )
-                np.testing.assert_array_equal(
-                    np.asarray(out.pos), np.asarray(ref2.pos)
-                )
+def _assert_extract_equal(out, ref):
+    for field in ("median", "weight", "codes"):
+        got, want = np.asarray(getattr(out, field)), np.asarray(
+            getattr(ref, field))
+        assert got.dtype == want.dtype and got.shape == want.shape, field
+        np.testing.assert_array_equal(got, want, err_msg=field)
 
 
-def test_blit_kernel_matches_xla(interpret_pallas):
+def test_blit_kernel_matches_xla():
     from remap_tpu.ops import atlas as xatlas
     from remap_tpu.ops.pallas import blit as pblit
 
@@ -104,211 +46,125 @@ def test_blit_kernel_matches_xla(interpret_pallas):
             atlas_h=ah,
             atlas_w=aw,
             masks=jnp.asarray(1 - ok),
+            kernels=False,
         )
     )
     out = np.asarray(
         pblit.blit_frames(
-            jnp.asarray(frames), jnp.asarray(ok), jnp.asarray(pos), ah, aw
+            jnp.asarray(frames), jnp.asarray(pos),
+            jnp.zeros((ah, aw, 16), jnp.uint16), masks=jnp.asarray(1 - ok),
         )
-    )[:, :ah, :aw]
-    np.testing.assert_array_equal(out.transpose(1, 2, 0), ref)
+    )
+    np.testing.assert_array_equal(out, ref)
 
 
-def test_blit_kernel_accumulates(interpret_pallas):
+def test_blit_kernel_accumulates():
+    """Counts add onto the canvas and wrap at 2^16 like fgm's uint16."""
     from remap_tpu.ops.pallas import blit as pblit
 
     frames = np.full((2, 8, 16), 3, np.uint8)
-    ok = np.ones((2, 8, 16), np.uint8)
     pos = np.zeros((2, 2), np.int32)
-    d1 = pblit.blit_frames(
-        jnp.asarray(frames), jnp.asarray(ok), jnp.asarray(pos), 16, 32
-    )
-    d2 = pblit.blit_frames(
-        jnp.asarray(frames), jnp.asarray(ok), jnp.asarray(pos), 16, 32, dots=d1
-    )
-    assert int(np.asarray(d2)[3, 0, 0]) == 4
+    d0 = jnp.zeros((16, 32, 16), jnp.uint16).at[0, 0, 3].set(65535)
+    d1 = pblit.blit_frames(jnp.asarray(frames), jnp.asarray(pos), d0)
+    d2 = pblit.blit_frames(jnp.asarray(frames), jnp.asarray(pos), d1)
+    assert int(np.asarray(d2)[1, 0, 3]) == 4
+    assert int(np.asarray(d2)[0, 0, 3]) == 3     # 65535 + 4 wraps
+    assert int(np.asarray(d2)[0, 0, 2]) == 0
+    assert int(np.asarray(d2)[8, 0, 3]) == 0     # below the frames
 
 
-def test_cc_kernel_matches_xla(interpret_pallas):
-    """Segmented-scan CC labels == pointer-jump XLA labels, including a
-    spiral (worst case for propagation reach)."""
-    from remap_tpu.ops import cc
-    from remap_tpu.ops.pallas import cc as pcc
+@pytest.mark.parametrize("tile", [(8, 16), (16, 64), (32, 32)])
+def test_blit_kernel_tiles(tile):
+    """Canvas tiles that do not divide the canvas, frames straddling
+    tile edges: every tile shape gives the scan's canvas."""
+    from remap_tpu.ops import atlas as xatlas
+    from remap_tpu.ops.pallas import blit as pblit
 
-    rng = np.random.default_rng(11)
-    cases = [
-        np.kron(
-            rng.integers(0, 4, (8, 10), np.uint8), np.ones((6, 6), np.uint8)
-        )[:40, :56],
-        rng.integers(0, 3, (40, 56)).astype(np.uint8),
-        np.zeros((40, 56), np.uint8),
-    ]
-    spiral = np.zeros((33, 48), np.uint8)
-    spiral[::4, :] = 1
-    for i, r in enumerate(range(0, 33, 4)):
-        spiral[r, -2 if i % 2 == 0 else 1] = 0
-    cases.append(spiral)
-
-    for img in cases:
-        ref = np.asarray(cc.label_components(jnp.asarray(img)))
-        out = np.asarray(
-            pcc.label_components_batch(jnp.asarray(img[None]))
-        )[0]
-        np.testing.assert_array_equal(out, ref)
-
-
-def test_cc_banded_matches_whole_frame(interpret_pallas):
-    """Row-banded CC (>VGA path) == whole-frame kernel bit-exactly:
-    random content, tall vertical stripes (every component crosses every
-    band boundary), a band-dodging spiral, and a height that does not
-    divide into the band size (padding path)."""
-    from remap_tpu.ops import cc
-    from remap_tpu.ops.pallas import cc as pcc
-
-    rng = np.random.default_rng(13)
-    stripes = np.tile(
-        np.repeat(rng.integers(0, 4, 12, np.uint8).astype(np.uint8), 8)[
-            None, :96
-        ],
-        (64, 1),
-    )
-    spiral = np.zeros((64, 96), np.uint8)
-    spiral[::6, :] = 1
-    for i, r in enumerate(range(0, 64, 6)):
-        spiral[r, -2 if i % 2 == 0 else 1] = 0
-    cases = [
-        (rng.integers(0, 3, (64, 96)).astype(np.uint8), 16),
-        (stripes, 16),
-        (spiral, 16),
-        (rng.integers(0, 3, (50, 96)).astype(np.uint8), 16),  # pad path
-        (np.kron(
-            rng.integers(0, 4, (10, 12), np.uint8),
-            np.ones((6, 8), np.uint8),
-        )[:58, :96], 8),
-    ]
-    for img, band in cases:
-        ref = np.asarray(cc.label_components(jnp.asarray(img)))
-        out = np.asarray(
-            pcc.label_components_banded(
-                jnp.asarray(img[None]), band_rows=band
-            )
-        )[0]
-        np.testing.assert_array_equal(out, ref)
-
-
-def test_fde_stats_path_matches_xla(interpret_pallas):
-    """extract_batch via the CC-stats kernel == the XLA segment-op path."""
-    from remap_tpu.ops import fde as fde_ops
-    from remap_tpu.ops.pallas import cc as pcc
-
-    rng = np.random.default_rng(21)
-    h, w = 40, 56
-    assert pcc.supports_stats(h, w)
-    bg = rng.integers(0, 16, (h + 20, w + 20), dtype=np.uint8)
-    # frames = background + small sprites => real foreground components
-    pos = np.stack([rng.integers(0, 20, 6), rng.integers(0, 20, 6)], -1)
-    frames = np.stack([
-        bg[p[1] : p[1] + h, p[0] : p[0] + w].copy() for p in pos
-    ])
-    for f in frames:
-        y, x = rng.integers(5, h - 9), rng.integers(5, w - 9)
-        f[y : y + 4, x : x + 4] = rng.integers(0, 16)
-
-    ref = fde_ops.extract_batch(
-        jnp.asarray(bg), jnp.asarray(frames), None,
-        jnp.asarray(pos.astype(np.int32)),
-        compute_medians=True, use_pallas=False,
-    )
-    out = fde_ops.extract_batch(
-        jnp.asarray(bg), jnp.asarray(frames), None,
-        jnp.asarray(pos.astype(np.int32)),
-        compute_medians=True, use_pallas=True,
-    )
+    rng = np.random.default_rng(sum(tile))
+    f, h, w, ah, aw = 5, 19, 23, 45, 70
+    frames = rng.integers(0, 16, size=(f, h, w), dtype=np.uint8)
+    pos = np.stack(
+        [rng.integers(0, aw - w + 1, f), rng.integers(0, ah - h + 1, f)], -1
+    ).astype(np.int32)
+    dots = rng.integers(0, 1 << 16, (ah, aw, 16)).astype(np.uint16)
+    ref = xatlas.blit_frames(jnp.asarray(frames), jnp.asarray(pos), ah, aw,
+                             dots=jnp.asarray(dots), kernels=False)
+    out = pblit.blit_frames(jnp.asarray(frames), jnp.asarray(pos),
+                            jnp.asarray(dots), tile=tile)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
-def test_extract_banded_matches_xla(interpret_pallas):
-    """Row-banded dispatch (band_h forced small) == XLA, even when the
-    band height does not divide the frame height."""
-    from remap_tpu.core.regions import make_layout
-    from remap_tpu.ops import kpe as jkpe
+def test_blit_kernel_refuses_2to16_frames():
+    from remap_tpu.ops.pallas import blit as pblit
+
+    with pytest.raises(ValueError):
+        pblit.blit_frames(jnp.zeros((1 << 16, 1, 1), jnp.uint8),
+                          jnp.zeros((1 << 16, 2), jnp.int32),
+                          jnp.zeros((1, 1, 16), jnp.uint16))
+
+
+def test_extract_banded_matches_xla():
+    """Tiles that divide neither frame dimension: the masked halo loads
+    at frame edges and the masked stores of partial tiles give the XLA
+    outputs everywhere, borders included."""
     from remap_tpu.ops.pallas import extract as pext
 
     rng = np.random.default_rng(7)
-    imgs = rng.integers(0, 16, size=(2, 50, 64), dtype=np.uint8)
-    layout = make_layout(64, 50, 4, 2, 8)
-    ref = jkpe.extract_dense(jnp.asarray(imgs), layout)
-    out = pext.extract_dense_raw(jnp.asarray(imgs), band_h=16)
-    x_lo, x_hi = layout.x_proc
-    y_lo, y_hi = layout.y_proc
-    sl = np.s_[:, y_lo:y_hi, x_lo:x_hi]
-    np.testing.assert_array_equal(
-        np.asarray(out.median)[sl], np.asarray(ref.median)[sl]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out.weight)[sl], np.asarray(ref.weight)[sl]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out.codes)[sl], np.asarray(ref.codes)[sl]
-    )
+    imgs = rng.integers(0, 16, size=(2, 50, 70), dtype=np.uint8)
+    out = pext.extract_dense_raw(jnp.asarray(imgs), tile=(16, 32))
+    _assert_extract_equal(out, _extract_ref(imgs))
 
 
 def test_extract_tile_selection():
+    """One partial tile, tiles smaller than the frame, exact tiling:
+    every tile shape gives the XLA outputs."""
     from remap_tpu.ops.pallas import extract as pext
 
-    assert pext.pick_tile(240, 256) is None          # fits whole
-    tile = pext.pick_tile(480, 640)                  # VGA must band
-    assert tile is not None and (tile + 4) * 640 <= 125_000
-    assert pext.supports(480, 640)
-    assert pext.supports(312, 388)
+    for h, w, tile in ((9, 13, (16, 64)), (33, 40, (8, 16)),
+                       (24, 64, (16, 64))):
+        imgs = np.random.default_rng(h * w).integers(
+            0, 16, size=(3, h, w), dtype=np.uint8)
+        out = pext.extract_dense_raw(jnp.asarray(imgs), tile=tile)
+        _assert_extract_equal(out, _extract_ref(imgs))
 
 
-def test_extract_kernel_matches_xla(interpret_pallas):
+def test_extract_kernel_matches_xla():
+    """Through ``kpe.extract_dense`` (bounds masking included) with the
+    kernel forced, on a real palette-ordered clip."""
     from remap_tpu.core.regions import make_layout
     from remap_tpu.ops import kpe as jkpe
+    from remap_tpu.utils import testing
+
+    clip = testing.simple_clip(n_frames=3, frame_hw=(48, 64), seed=3)
+    imgs = jnp.asarray(np.stack(clip.frames))
+    layout = make_layout(64, 48, 4, 2, 8)
+    ref = jkpe.extract_dense(imgs, layout, kernels=False)
+    out = jkpe.extract_dense(imgs, layout, kernels=True)
+    _assert_extract_equal(out, ref)
+
+
+def test_extract_kernel_follows_palette():
+    """The kernel's packed lookup tables follow the active palette."""
+    from remap_tpu.core import palette
     from remap_tpu.ops.pallas import extract as pext
 
-    rng = np.random.default_rng(3)
-    imgs = rng.integers(0, 16, size=(2, 48, 64), dtype=np.uint8)
-    layout = make_layout(64, 48, 4, 2, 8)
-    ref = jkpe.extract_dense(jnp.asarray(imgs), layout)
-    out = pext.extract_dense_raw(jnp.asarray(imgs))
-    x_lo, x_hi = layout.x_proc
-    y_lo, y_hi = layout.y_proc
-    sl = np.s_[:, y_lo:y_hi, x_lo:x_hi]
-    np.testing.assert_array_equal(
-        np.asarray(out.median)[sl], np.asarray(ref.median)[sl]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out.weight)[sl], np.asarray(ref.weight)[sl]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out.codes)[sl], np.asarray(ref.codes)[sl]
-    )
+    imgs = np.random.default_rng(5).integers(
+        0, 16, size=(2, 20, 24), dtype=np.uint8)
+    try:
+        palette.set_palette("zx")
+        out = pext.extract_dense_raw(jnp.asarray(imgs))
+        ref = _extract_ref(imgs)
+    finally:
+        palette.set_palette("c64")
+    _assert_extract_equal(out, ref)
 
 
+def test_pack_table_roundtrip():
+    from remap_tpu.core import palette
+    from remap_tpu.ops.pallas import extract as pext
 
-def test_tables_kernel_vmem_gate():
-    """The shift-network kernel's supports() gate must price scoped VMEM:
-    the VGA streaming config (640x480, 8 regions, capacity 3072) was
-    measured to exceed the chip's 16 MB scoped-vmem limit (16.77 MB —
-    the extended sweep crashed on it), so the gate must reject it and
-    route the stage to the XLA sort2 fallback, while every config the
-    kernel is proven on stays gated IN."""
-    from remap_tpu.config import PipelineConfig
-    from remap_tpu.core.regions import make_layout
-    from remap_tpu.ops.pallas import tables as ptables
-
-    cfg = PipelineConfig()
-
-    def gate(w, h, cap):
-        lay = make_layout(w, h, cfg.grid_width, cfg.grid_height,
-                          cfg.grid_overlap)
-        return ptables.supports(lay, h, w, cap)
-
-    assert gate(256, 240, 640)        # NES flagship
-    assert gate(256, 240, 768)
-    assert gate(256, 224, 640)        # SNES
-    assert gate(388, 312, 768)        # C64
-    assert gate(372, 272, 384)        # gameplay sessions
-    assert not gate(640, 480, 3072)   # VGA: measured 16.77 MB > 16 MB
+    for table in (palette.NATIVE_TO_ORDERED, palette.ORDERED_TO_NATIVE,
+                  np.arange(16)[::-1]):
+        lo, hi = pext.pack_table(table)
+        got = np.asarray(pext._lookup(lo, hi, jnp.arange(16, dtype=jnp.int32)))
+        np.testing.assert_array_equal(got, table)

@@ -62,7 +62,7 @@ def test_sharded_step_matches_single_device():
 
 @pytest.mark.parametrize("family", ["xcorr", "pyramid"])
 def test_sharded_step_correlation_families(family):
-    """BASELINE config 5 names pyramid matching for the pod-slice case:
+    """BASELINE config 5 names pyramid matching for the sharded 640x480 case:
     the sharded step must run the correlation families too, equal to the
     unsharded step (clips over 'data'; the FFTs force XLA to gather the
     'space'-sharded frame axis — correct, just not where their
@@ -107,8 +107,7 @@ def test_streaming_reanchors_on_long_drift():
     frames = np.stack(clip.frames)
 
     pad = 16
-    init, step = make_streaming_step(LAYOUT, CFG, atlas_pad=pad,
-                                     use_pallas=False)
+    init, step = make_streaming_step(LAYOUT, CFG, atlas_pad=pad)
     step = jax.jit(step)
     state = init()
     for i in range(0, 24, 4):
@@ -119,11 +118,11 @@ def test_streaming_reanchors_on_long_drift():
         assert not bool(np.asarray(ovf).any())
 
     anchor = np.asarray(state.anchor)
-    dots = np.asarray(state.dots)  # [16, HP, WP]
-    votes = dots.sum(axis=0)
+    dots = np.asarray(state.dots)  # [AH, AW, 16]
+    votes = dots.sum(axis=-1)
     covered = votes > 0
     assert covered.any()
-    blend = dots.argmax(axis=0)
+    blend = dots.argmax(axis=-1)
     # stream coord = atlas coord + anchor; world coord = stream + path[0]
     ys, xs = np.nonzero(covered)
     wy = ys + anchor[1] + path[0][1]
@@ -149,8 +148,7 @@ def test_streaming_strays_on_window_overflow():
     frames.append(frames[-1].copy())
     frames = np.stack(frames)
 
-    init, step = make_streaming_step(LAYOUT, CFG, atlas_pad=16,
-                                     use_pallas=False)
+    init, step = make_streaming_step(LAYOUT, CFG, atlas_pad=16)
     step = jax.jit(step)
     state = init()
     flags = []
@@ -171,7 +169,7 @@ def test_streaming_equals_batch_collect():
     )
     col = jcollect.collect(clip.frames, CFG)
 
-    init, step = make_streaming_step(LAYOUT, CFG, atlas_pad=32, use_pallas=False)
+    init, step = make_streaming_step(LAYOUT, CFG, atlas_pad=32)
     step = jax.jit(step)
     state = init()
     offs_all = []
