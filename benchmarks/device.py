@@ -30,8 +30,10 @@ def require_gpu():
     """The first device, which must be a GPU; raises otherwise."""
     import jax
 
+    from remap_tpu.utils import backend
+
     dev = jax.devices()[0]
-    if dev.platform != "gpu":
+    if not backend.on_gpu():
         raise SystemExit(
             f"no GPU: JAX found {dev.platform!r} ({dev.device_kind}); "
             "measurements run on the card only"

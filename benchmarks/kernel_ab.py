@@ -1,23 +1,22 @@
 #!/usr/bin/env python
 """Each hand-written kernel against the plain XLA form it replaces.
 
-For every kernel of ``ops.pallas`` and each screen size, batch 256:
+For the extraction kernel of ``ops.pallas`` and each screen size, batch
+256:
 
 - the operation alone: kernel and XLA form on the same inputs, outputs
   compared bit for bit, both times printed;
 - end to end: the streaming step (``parallel.sharded.
   make_streaming_step``, bench.py's configuration) with the kernel on
-  and off, the other kernel held as the device decides.
+  and off.
 
-The blit kernel is also timed against a scan-free XLA form, one int32
-scatter-add of the whole batch's votes.  A kernel stays in the program
-only if it is faster than every plain form, end to end.  The two XLA
-assemblies of fdf's foreground masks (``ops.fde``) are timed the same
-way, on the labels of the same medians.
+A kernel stays in the program only if it is faster than the plain form,
+end to end.  The two XLA assemblies of fdf's foreground masks
+(``ops.fde``) are timed the same way, on the labels of the same medians.
 
 Usage: python benchmarks/kernel_ab.py [--sizes 240x256,312x388]
-       [--batch 256] [--reps 10] [--ops extract,blit,fdf,step]
-       [--extract-sweep 16x64w4,8x32w4] [--blit-sweep 16x64w4]
+       [--batch 256] [--reps 10] [--ops extract,fdf,step]
+       [--extract-sweep 16x64w4,8x32w4]
 Prints one JSON line per measurement.
 """
 
@@ -32,29 +31,6 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from benchmarks import device  # noqa: E402
-
-
-def blit_scatter(frames, positions, atlas_h, atlas_w, dots):
-    """Scan-free XLA blit: one scatter-add of every frame's votes."""
-    import jax.numpy as jnp
-
-    f, h, w = frames.shape
-    ys = positions[:, 1, None, None] + jnp.arange(h)[None, :, None]
-    xs = positions[:, 0, None, None] + jnp.arange(w)[None, None, :]
-    idx = ((ys * atlas_w + xs) * 16 + frames.astype(jnp.int32)).reshape(-1)
-    counts = jnp.zeros(atlas_h * atlas_w * 16, jnp.int32).at[idx].add(1)
-    return (dots.astype(jnp.int32)
-            + counts.reshape(atlas_h, atlas_w, 16)).astype(jnp.uint16)
-
-
-def walk(n: int, span: int, rng) -> np.ndarray:
-    """[n, 2] (x, y) camera positions: a +-3 px walk inside [0, span]."""
-    pos = np.zeros((n, 2), np.int32)
-    p = np.array([span // 2, span // 2])
-    for i in range(n):
-        p = np.clip(p + rng.integers(-3, 4, 2), 0, span)
-        pos[i] = p
-    return pos
 
 
 def extract_pair(images):
@@ -84,37 +60,6 @@ def op_extract(images, reps: int) -> dict:
         "equal": equal,
         "kernel": device.timeit(pext.extract_dense_raw, images, reps=reps),
         "xla": device.timeit(xla, images, reps=reps),
-    }
-
-
-def op_blit(frames, positions, atlas_h, atlas_w, reps: int) -> dict:
-    import jax
-    import jax.numpy as jnp
-
-    from remap_tpu.ops import atlas
-
-    dots = jnp.zeros((atlas_h, atlas_w, 16), jnp.uint16)
-
-    def run(kernels):
-        return jax.jit(lambda f, p, d: atlas.blit_frames(
-            f, p, atlas_h, atlas_w, dots=d, kernels=kernels))
-
-    scatter = jax.jit(lambda f, p, d: blit_scatter(f, p, atlas_h, atlas_w, d))
-    want = np.asarray(run(False)(frames, positions, dots))
-    equal = {
-        "kernel": bool((np.asarray(run(True)(frames, positions, dots))
-                        == want).all()),
-        "scatter": bool((np.asarray(scatter(frames, positions, dots))
-                         == want).all()),
-    }
-    return {
-        "equal": equal,
-        "kernel": device.timeit(run(True), frames, positions, dots,
-                                reps=reps),
-        "xla_scan": device.timeit(run(False), frames, positions, dots,
-                                  reps=reps),
-        "xla_scatter": device.timeit(scatter, frames, positions, dots,
-                                     reps=reps),
     }
 
 
@@ -174,31 +119,9 @@ def extract_sweep(images, configs, reps: int) -> dict:
     return out
 
 
-def blit_sweep(frames, positions, atlas_h, atlas_w, configs,
-               reps: int) -> dict:
-    """Blit kernel time per (tile, num_warps), each checked equal."""
-    import jax.numpy as jnp
-
-    from remap_tpu.ops import atlas
-    from remap_tpu.ops.pallas import blit as pblit
-
-    dots = jnp.zeros((atlas_h, atlas_w, 16), jnp.uint16)
-    want = np.asarray(atlas.blit_frames(frames, positions, atlas_h, atlas_w,
-                                        dots=dots, kernels=False))
-    out = {}
-    for tile, warps in configs:
-        fn = lambda f, p, d, t=tile, nw=warps: pblit.blit_frames(
-            f, p, d, tile=t, num_warps=nw)
-        equal = bool((np.asarray(fn(frames, positions, dots)) == want).all())
-        out[f"{tile[0]}x{tile[1]}w{warps}"] = {
-            "equal": equal,
-            **device.timeit(fn, frames, positions, dots, reps=reps)}
-    return out
-
-
 def step_times(h: int, w: int, batch: int, reps: int) -> dict:
-    """Streaming step per batch with each kernel forced on or off, and
-    with the blit replaced by the scan-free XLA form."""
+    """Streaming step per batch with the extraction kernel forced on
+    and off."""
     import jax
     import jax.numpy as jnp
 
@@ -212,25 +135,10 @@ def step_times(h: int, w: int, batch: int, reps: int) -> dict:
                          cfg.grid_overlap)
     frames = jnp.asarray(bench.make_clip(batch, h, w))
     out = {}
-    real_extract, real_blit = backend.extract_path, backend.blit_path
-    real_atlas_blit = sharded.atlas_ops.blit_frames
-
-    def scatter_blit(frames, positions, atlas_h, atlas_w, dots=None,
-                     **_):
-        return blit_scatter(frames, positions, atlas_h, atlas_w, dots)
-
-    for name, ext_on, blit_on in (("xla", False, False),
-                                  ("extract", True, False),
-                                  ("blit", False, True),
-                                  ("both", True, True),
-                                  ("scatter_blit", False, None),
-                                  ("extract_scatter_blit", True, None)):
+    real_extract = backend.extract_path
+    for name, on in (("xla", False), ("extract", True)):
         backend.extract_path = (
-            lambda *a, on=ext_on, **k: backend.TRITON if on else backend.XLA)
-        backend.blit_path = (
-            lambda *a, on=blit_on, **k: backend.TRITON if on else backend.XLA)
-        if blit_on is None:
-            sharded.atlas_ops.blit_frames = scatter_blit
+            lambda *a, on=on, **k: backend.TRITON if on else backend.XLA)
         # inner jitted ops cache their traces: drop them so each
         # variant traces its own paths
         jax.clear_caches()
@@ -242,8 +150,7 @@ def step_times(h: int, w: int, batch: int, reps: int) -> dict:
             out[name] = device.timeit(lambda im: step(im, state), frames,
                                       reps=reps)
         finally:
-            backend.extract_path, backend.blit_path = real_extract, real_blit
-            sharded.atlas_ops.blit_frames = real_atlas_blit
+            backend.extract_path = real_extract
     return out
 
 
@@ -252,13 +159,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sizes", default="240x256,312x388")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--no-steps", action="store_true")
-    ap.add_argument("--ops", default="extract,blit,fdf,step",
-                    help="comma list of extract, blit, fdf, step")
+    ap.add_argument("--ops", default="extract,fdf,step",
+                    help="comma list of extract, fdf, step")
     ap.add_argument("--extract-sweep", default="",
                     help="extract tiles to time, e.g. 16x64w4,8x32w4")
-    ap.add_argument("--blit-sweep", default="",
-                    help="blit tiles to time, e.g. 16x64w4,8x32w4")
     args = ap.parse_args(argv)
 
     import jax.numpy as jnp
@@ -270,8 +174,6 @@ def main(argv=None) -> int:
     print(device.card(), flush=True)
     print(dev.device_kind, flush=True)
     ops = set(args.ops.split(","))
-    if args.no_steps:
-        ops.discard("step")
     def configs(spec):
         out = []
         for item in filter(None, spec.split(",")):
@@ -280,7 +182,6 @@ def main(argv=None) -> int:
         return out
 
     sweep = configs(args.extract_sweep)
-    bsweep = configs(args.blit_sweep)
     rng = np.random.default_rng(0)
     for size in args.sizes.split(","):
         h, w = map(int, size.split("x"))
@@ -293,16 +194,6 @@ def main(argv=None) -> int:
         if sweep:
             device.emit({"op": "extract_sweep", **rec,
                          **extract_sweep(images, sweep, args.reps)})
-        pad = 128
-        positions = jnp.asarray(walk(args.batch, 2 * pad, rng))
-        if "blit" in ops:
-            device.emit({"op": "blit", **rec,
-                         **op_blit(images, positions, h + 2 * pad,
-                                   w + 2 * pad, args.reps)})
-        if bsweep:
-            device.emit({"op": "blit_sweep", **rec,
-                         **blit_sweep(images, positions, h + 2 * pad,
-                                      w + 2 * pad, bsweep, args.reps)})
         if "fdf" in ops:
             device.emit({"op": "fdf_assembly", **rec,
                          **op_fdf_assembly(images, args.reps)})

@@ -2,7 +2,9 @@
 """Prove on a GPU that the map builder runs and gives the spec's maps.
 
 One process, one card.  Five phases, each printing its size, the kernel
-or XLA path it took, its wall time and its check:
+or XLA path each of its traced calls took (``utils.backend.TRACED``;
+the jit caches are cleared before a phase, so its calls trace anew), its
+wall time and its check:
 
 1. the CLI on a 220-frame C64-width (388x312) gameplay session with a
    noise frame mid-clip (a fragment break the splicer re-merges): its
@@ -14,8 +16,8 @@ or XLA path it took, its wall time and its check:
    capacity 640, vote radius 16, multiplicity 1) over 8 batches: every
    pair matched, no exactness flag, the resident atlas equal to the
    world;
-4. each Triton kernel against its plain XLA form at 256x240 and 388x312,
-   batch 256: outputs bit-equal, both times printed;
+4. the Triton extraction kernel against its plain XLA form at 256x240
+   and 388x312, batch 256: outputs bit-equal, both times printed;
 5. the xcorr and pyramid matcher families recover known camera shifts.
 
 ``--four-cards`` runs, instead and alone, the multi-device checks that
@@ -57,9 +59,17 @@ def report(name: str, size: str, path: str, seconds: float,
           f"{check}", flush=True)
 
 
-def _paths(b: int, h: int, w: int, pad: int) -> str:
-    return (f"extract={backend.extract_path(b, h, w)} "
-            f"blit={backend.blit_path(b, h, w, h + 2 * pad, w + 2 * pad)}")
+def run_phase(name: str, size: str, fn, check) -> None:
+    """Run ``fn`` with fresh jit caches and report the paths it traced;
+    ``check(result)`` says what was checked."""
+    import jax
+
+    jax.clear_caches()
+    backend.TRACED.clear()
+    t0 = time.perf_counter()
+    result = fn()
+    report(name, size, backend.traced_summary(), time.perf_counter() - t0,
+           check(result))
 
 
 def _write_raw(frames, directory: Path) -> None:
@@ -179,7 +189,8 @@ def phase_streaming(frame_hw=NES, batch: int = 256, steps: int = 8) -> dict:
 
 def phase_kernels(sizes=(NES, C64), batch: int = 256,
                   reps: int = 10) -> list:
-    """Phase 4: each kernel bit-equal to its XLA form; both times."""
+    """Phase 4: the extraction kernel bit-equal to its XLA form; both
+    times."""
     import jax.numpy as jnp
 
     from benchmarks import kernel_ab
@@ -190,18 +201,10 @@ def phase_kernels(sizes=(NES, C64), batch: int = 256,
         images = jnp.asarray(rng.integers(0, 16, (batch, h, w), np.uint8))
         ext = kernel_ab.op_extract(images, reps)
         assert ext["equal"], f"extract differs at {h}x{w}"
-        pad = min(128, h)
-        positions = jnp.asarray(kernel_ab.walk(batch, 2 * pad, rng))
-        blit = kernel_ab.op_blit(images, positions, h + 2 * pad,
-                                 w + 2 * pad, reps)
-        assert all(blit["equal"].values()), f"blit differs at {h}x{w}"
         out.append({
             "size": f"{w}x{h}",
             "extract_ms": {"triton": ext["kernel"]["median_ms"],
                            "xla": ext["xla"]["median_ms"]},
-            "blit_ms": {"triton": blit["kernel"]["median_ms"],
-                        "xla_scan": blit["xla_scan"]["median_ms"],
-                        "xla_scatter": blit["xla_scatter"]["median_ms"]},
         })
     return out
 
@@ -239,37 +242,30 @@ def phase_matchers() -> dict:
 
 
 def run_one_card(workdir: Path) -> None:
-    t0 = time.perf_counter()
-    r = phase_cli_spec(workdir)
-    report("1 cli=spec", "388x312 x %d frames" % r["frames"],
-           _paths(128, *C64, 0), time.perf_counter() - t0,
-           f"{r['maps']} map(s) {r['shapes']} pixel-equal to the spec "
-           f"(CLI {r['cli_s']:.2f} s, spec {r['spec_s']:.2f} s)")
-    t0 = time.perf_counter()
-    r = phase_cli_session(workdir)
-    report("2 cli session", "388x312 x %d frames" % r["frames"],
-           _paths(128, *C64, 0), time.perf_counter() - t0,
-           f"{r['maps']} map(s), world agreement {r['agreement']:.6f}, "
-           f"painted {r['painted']:.4f} (CLI {r['cli_s']:.2f} s)")
-    t0 = time.perf_counter()
-    r = phase_streaming()
-    report("3 streaming step", "256x240 x 8 batches of 256",
-           _paths(256, *NES, 128), time.perf_counter() - t0,
-           f"matched {r['matched']:.0%}, flags {r['flags']}, atlas equal "
-           f"to the world (first step {r['first_step_s']:.2f} s, then "
-           f"median {r['step_ms_median']:.3f} ms/step)")
-    t0 = time.perf_counter()
-    for r in phase_kernels():
-        report("4 kernels", f"{r['size']} x 256", "triton vs xla",
-               time.perf_counter() - t0,
-               f"bit-equal; extract ms {r['extract_ms']}; "
-               f"blit ms {r['blit_ms']}")
-    t0 = time.perf_counter()
-    r = phase_matchers()
-    report("5 xcorr+pyramid", "128x96 and 256x192", "xla (FFT)",
-           time.perf_counter() - t0,
-           f"{r['xcorr_pairs']} xcorr + {r['pyramid_pairs']} pyramid "
-           "offsets equal the camera path")
+    run_phase(
+        "1 cli=spec", "388x312 x 221 frames",
+        lambda: phase_cli_spec(workdir),
+        lambda r: f"{r['maps']} map(s) {r['shapes']} pixel-equal to the "
+                  f"spec (CLI {r['cli_s']:.2f} s, spec {r['spec_s']:.2f} s)")
+    run_phase(
+        "2 cli session", "388x312 x 2048 frames",
+        lambda: phase_cli_session(workdir),
+        lambda r: f"{r['maps']} map(s), world agreement "
+                  f"{r['agreement']:.6f}, painted {r['painted']:.4f} "
+                  f"(CLI {r['cli_s']:.2f} s)")
+    run_phase(
+        "3 streaming step", "256x240 x 8 batches of 256", phase_streaming,
+        lambda r: f"matched {r['matched']:.0%}, flags {r['flags']}, atlas "
+                  f"equal to the world (first step {r['first_step_s']:.2f} "
+                  f"s, then median {r['step_ms_median']:.3f} ms/step)")
+    run_phase(
+        "4 kernels", "256x240 and 388x312 x 256", phase_kernels,
+        lambda rs: "bit-equal; extract ms " + "; ".join(
+            f"{r['size']} {r['extract_ms']}" for r in rs))
+    run_phase(
+        "5 xcorr+pyramid", "128x96 and 256x192", phase_matchers,
+        lambda r: f"{r['xcorr_pairs']} xcorr + {r['pyramid_pairs']} "
+                  "pyramid offsets (FFT, XLA) equal the camera path")
 
 
 def run_four_cards() -> None:
@@ -280,22 +276,17 @@ def run_four_cards() -> None:
 
     assert len(jax.devices()) == 4, f"{len(jax.devices())} devices, not 4"
     mesh = make_mesh(4, space=2)
-    on_mesh = ("4 cards, mesh data 2 x space 2",
-               "xla under the mesh; the unsharded side as the device "
-               "decides")
-    for name, (size, path), fn in (
+    on_mesh = "4 cards, mesh data 2 x space 2"
+    for name, size, fn in (
         ("sharded step 128x160 = unsharded", on_mesh,
          lambda: graft.check_sharded_step(mesh)),
         ("sharded pyramid 640x480 = unsharded", on_mesh,
          lambda: graft.check_pyramid_sharded(mesh)),
         ("builder teleport = spec",
-         ("4 cards, fragments round-robin, 96x72 x 41 frames",
-          _paths(8, 72, 96, 0)),
+         "4 cards, fragments round-robin, 96x72 x 41 frames",
          graft.check_builder_spec),
     ):
-        t0 = time.perf_counter()
-        fn()
-        report(name, size, path, time.perf_counter() - t0, "equal")
+        run_phase(name, size, fn, lambda _: "equal")
 
 
 def main(argv=None) -> int:

@@ -2,12 +2,10 @@
 
 The reference grows a per-fragment canvas of 16-bin vote histograms and
 blits frames one at a time (fgm.hpp:71-113,176-233).  Here the canvas is a
-static padded [Ha, Wa, 16] uint16 array; a whole fragment's frames are
-blitted in one ``lax.scan`` of dynamic-update-slice adds (positions are
-known up front from the batched matcher, so no growth logic is needed —
-the extent is computed on the host and padded to a bucket size to bound
-recompiles).  On a GPU the Triton kernel of ``ops.pallas.blit`` replaces
-the scan (``utils.backend.blit_path``).
+static padded [Ha, Wa, 16] uint16 array; a whole batch of frames is
+blitted in one scatter-add of its votes (positions are known up front
+from the batched matcher, so no growth logic is needed — the extent is
+computed on the host and padded to a bucket size to bound recompiles).
 
 Vote counts wrap at 65535 exactly like the C++ ``++uint16`` (fgm.hpp:12-15).
 """
@@ -20,14 +18,10 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
-from remap_tpu.utils import backend
-
 DEPTH = 16  # fgm.hpp:12
 
 
-@functools.partial(
-    jax.jit, static_argnames=("atlas_h", "atlas_w", "kernels")
-)
+@functools.partial(jax.jit, static_argnames=("atlas_h", "atlas_w"))
 def blit_frames(
     frames: jax.Array,          # [F, H, W] uint8
     positions: jax.Array,       # [F, 2] int32 (x, y) atlas coords, in-bounds
@@ -35,40 +29,28 @@ def blit_frames(
     atlas_w: int,
     masks: Optional[jax.Array] = None,   # [F, H, W] uint8; vote where == 0
     dots: Optional[jax.Array] = None,    # [Ha, Wa, 16] uint16 to accumulate
-    kernels: Optional[bool] = None,
 ) -> jax.Array:
     """Scatter color votes of all frames into an atlas (fgm.hpp:71-97).
 
-    ``kernels`` picks the Triton kernel or this scan (None: the
-    device decides, utils.backend)."""
-    f, h, w = frames.shape
+    One int32 scatter-add of the whole batch: pixel (y, x) of frame i
+    adds 1 at ``[pos_y + y, pos_x + x, color]``.  Pixels that do not vote
+    (masked, or a value past the palette) index past the canvas and are
+    dropped.  The counts join the canvas modulo 2^16 (fgm.hpp:12-15)."""
+    _, h, w = frames.shape
     if dots is None:
         dots = jnp.zeros((atlas_h, atlas_w, DEPTH), dtype=jnp.uint16)
-    if backend.blit_path(f, h, w, atlas_h, atlas_w, kernels) != backend.XLA:
-        from remap_tpu.ops.pallas import blit as pblit
-
-        return pblit.blit_frames(frames, positions, dots, masks)
-
-    def step(dots, inp):
-        if masks is None:
-            frame, pos = inp
-            votes = (
-                frame[..., None] == jnp.arange(DEPTH, dtype=jnp.uint8)
-            ).astype(jnp.uint16)
-        else:
-            frame, pos, mask = inp
-            votes = (
-                (frame[..., None] == jnp.arange(DEPTH, dtype=jnp.uint8))
-                & (mask[..., None] == 0)
-            ).astype(jnp.uint16)
-        x, y = pos[0], pos[1]
-        cur = jax.lax.dynamic_slice(dots, (y, x, 0), (h, w, DEPTH))
-        dots = jax.lax.dynamic_update_slice(dots, cur + votes, (y, x, 0))
-        return dots, None
-
-    xs = (frames, positions) if masks is None else (frames, positions, masks)
-    dots, _ = jax.lax.scan(step, dots, xs)
-    return dots
+    size = atlas_h * atlas_w * DEPTH
+    ys = positions[:, 1, None, None] + jnp.arange(h)[None, :, None]
+    xs = positions[:, 0, None, None] + jnp.arange(w)[None, None, :]
+    color = frames.astype(jnp.int32)
+    votes = color < DEPTH
+    if masks is not None:
+        votes &= masks == 0
+    idx = jnp.where(votes, (ys * atlas_w + xs) * DEPTH + color, size)
+    counts = jnp.zeros(size, jnp.int32).at[idx.reshape(-1)].add(
+        1, mode="drop")
+    total = dots.astype(jnp.int32) + counts.reshape(atlas_h, atlas_w, DEPTH)
+    return (total & 0xFFFF).astype(jnp.uint16)
 
 
 @jax.jit

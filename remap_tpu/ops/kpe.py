@@ -56,6 +56,7 @@ def _shift2d(x: jax.Array, dy: int, dx: int, k: int) -> jax.Array:
 @functools.partial(jax.jit, static_argnames=("height", "width"))
 def _extract_dense(images: jax.Array, height: int, width: int) -> DenseExtract:
     del height, width  # shapes are carried by the array; kept for cache keys
+    backend.record("extract", images.shape, backend.XLA)
     nat_to_ord = jnp.asarray(palette.NATIVE_TO_ORDERED)
     ord_to_nat = jnp.asarray(palette.ORDERED_TO_NATIVE)
 

@@ -131,6 +131,7 @@ def _kernel(img_ref, med_ref, wgt_ref, codes_ref, *, n, h, w, th, tw,
     jax.jit, static_argnames=("tabs", "tile", "num_warps", "interpret"))
 def _extract(images, tabs, tile, num_warps, interpret):
     b, h, w = images.shape
+    backend.record("extract", (b, h, w), backend.TRITON)
     th, tw = tile
     grid = (b, pl.cdiv(h, th), pl.cdiv(w, tw))
     n = b * h * w

@@ -1,16 +1,19 @@
 """Backend-dependent choices, made in one place from what JAX observes.
 
 Everything that differs between the GPU and the CPU is decided here, at
-trace time, from ``jax.devices()``: whether the hand-written kernels
-(``ops.pallas``) run, which shapes each kernel covers, and how many
-bytes of device memory the frame store may keep resident.  Callers pass
-``kernels=None`` to follow the device, or ``True``/``False`` to force a
-path (the A/B measurements and the equality tests do).
+trace time, from ``jax.devices()``: whether the hand-written extraction
+kernel (``ops.pallas.extract``) runs, which shapes it covers, and how
+many bytes of device memory the frame store may keep resident.  Callers
+pass ``kernels=None`` to follow the device, or ``True``/``False`` to
+force a path (the A/B measurements and the equality tests do).
 
-- On a GPU the Triton kernels run wherever their shape gate admits the
-  call; elsewhere the plain XLA forms run.
+- On a GPU the Triton kernel runs wherever its shape gate admits the
+  call; elsewhere the plain XLA form runs.
 - Off the GPU a forced kernel runs through the Pallas interpreter, so
-  the CPU test suite checks the kernels' arithmetic.
+  the CPU test suite checks the kernel's arithmetic.
+- Each implementation notes itself in ``TRACED`` when it is traced
+  (``record``), so a caller can see which path its calls took
+  (``chip_smoke.py`` prints it).
 - A ``pallas_call`` is opaque to XLA's SPMD partitioner, so programs
   jitted over a multi-device mesh (``parallel.sharded.make_sharded_step``)
   pass ``kernels=False``.
@@ -23,6 +26,16 @@ import jax
 #: kernel names, as ``chip_smoke.py`` prints the path each call took
 TRITON = "triton"
 XLA = "xla"
+
+#: (op, shape, path) of every implementation traced in this process; a
+#: jitted call that hits its cache is not traced again, so a caller that
+#: wants one phase's paths clears this and ``jax.clear_caches()`` first
+TRACED: set = set()
+
+
+def record(op: str, shape: tuple, path: str) -> None:
+    """Note, while tracing, that ``op`` ran on ``path`` for ``shape``."""
+    TRACED.add((op, tuple(shape), path))
 
 #: largest element count a kernel addresses in int32 arithmetic (with
 #: room for the one-past-the-end offsets of masked lanes)
@@ -43,11 +56,6 @@ def on_gpu() -> bool:
     return platform() == "gpu"
 
 
-def use_kernels(kernels: bool | None = None) -> bool:
-    """Resolve a ``kernels`` argument: None follows the device."""
-    return on_gpu() if kernels is None else bool(kernels)
-
-
 def interpret() -> bool:
     """Pallas calls run compiled on a GPU and interpreted elsewhere."""
     return not on_gpu()
@@ -58,26 +66,27 @@ def extract_path(b: int, h: int, w: int, kernels: bool | None = None) -> str:
 
     The Triton kernel addresses its flat code output ([b, h, w, 4]
     uint32 words) with int32 offsets; larger batches take XLA."""
-    if not use_kernels(kernels):
-        return XLA
-    return TRITON if b * h * w * 4 <= _INT32_OFFSETS else XLA
+    fits = b * h * w * 4 <= _INT32_OFFSETS
+    run = on_gpu() if kernels is None else kernels
+    return TRITON if run and fits else XLA
 
 
-def blit_path(f: int, h: int, w: int, atlas_h: int, atlas_w: int,
-              kernels: bool | None = None) -> str:
-    """Path of ``ops.atlas.blit_frames`` for f [h, w] frames into an
-    [atlas_h, atlas_w, 16] canvas.
-
-    The kernel counts each batch's votes in 16-bit register fields, so
-    one call takes fewer than 2^16 frames; its offsets are int32."""
-    if not use_kernels(kernels):
-        return XLA
-    fits = (
-        f < (1 << 16)
-        and f * h * w <= _INT32_OFFSETS
-        and atlas_h * atlas_w * 16 <= _INT32_OFFSETS
-    )
-    return TRITON if fits else XLA
+def traced_summary(traced=None, limit: int = 4) -> str:
+    """``TRACED`` as one line: per op and path, how many shapes and the
+    first ``limit`` of them; ``"xla only"`` when no call with a kernel
+    form was traced."""
+    groups: dict = {}
+    for op, shape, path in sorted(TRACED if traced is None else traced):
+        groups.setdefault((op, path), []).append(
+            "x".join(map(str, shape)))
+    if not groups:
+        return "xla only"
+    parts = []
+    for (op, path), shapes in groups.items():
+        more = f" +{len(shapes) - limit} more" if len(shapes) > limit else ""
+        parts.append(f"{op}={path} for {len(shapes)} shape(s) "
+                     f"[{', '.join(shapes[:limit])}{more}]")
+    return "; ".join(parts)
 
 
 def device_memory_limit(stats: dict | None = None) -> int:

@@ -49,7 +49,7 @@ class PerfCounter:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str = "/tmp/remap_tpu_trace"):
+def device_trace(log_dir: str):
     """jax.profiler trace around a block (view with tensorboard/xprof)."""
     import jax
 

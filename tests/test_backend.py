@@ -44,17 +44,40 @@ def test_extract_path_by_shape(on_platform, b, h, w, expect):
     assert backend.extract_path(b, h, w) == expect
 
 
-@pytest.mark.parametrize("f,h,w,ah,aw,expect", [
-    (256, 240, 256, 496, 512, backend.TRITON),
-    (128, 208, 240, 1992, 3584, backend.TRITON),   # 100k session canvas
-    (1 << 16, 8, 8, 64, 64, backend.XLA),          # 16-bit counters
-    (16, 240, 256, 12000, 12000, backend.XLA),     # canvas past int32
+@pytest.mark.parametrize("kernels,expect", [
+    (None, backend.XLA),       # the CPU: the device picks XLA
+    (False, backend.XLA),
+    (True, backend.TRITON),    # forced: the kernel runs interpreted
 ])
-def test_blit_path_by_shape(on_platform, f, h, w, ah, aw, expect):
-    on_platform("gpu")
-    assert backend.blit_path(f, h, w, ah, aw) == expect
-    on_platform("cpu")
-    assert backend.blit_path(f, h, w, ah, aw) == backend.XLA
+def test_traced_calls_record_their_path(monkeypatch, kernels, expect):
+    """A traced ``extract_dense`` leaves the path that ran behind; a
+    cached call traces nothing."""
+    import jax
+    import jax.numpy as jnp
+
+    from remap_tpu.core.regions import make_layout
+    from remap_tpu.ops import kpe
+
+    monkeypatch.setattr(backend, "TRACED", set())
+    layout = make_layout(32, 24, 4, 2, 8)
+    fn = jax.jit(lambda im: kpe.extract_dense(im, layout, kernels).weight)
+    jax.clear_caches()
+    fn(jnp.zeros((2, 24, 32), jnp.uint8))
+    assert backend.TRACED == {("extract", (2, 24, 32), expect)}
+    backend.TRACED.clear()
+    fn(jnp.zeros((2, 24, 32), jnp.uint8))
+    assert backend.TRACED == set()
+
+
+def test_traced_summary():
+    traced = {("extract", (256, 312, 388), backend.TRITON),
+              ("extract", (1, 300, 900), backend.TRITON),
+              ("extract", (1, 300, 1000), backend.TRITON),
+              ("extract", (4096, 480, 640), backend.XLA)}
+    assert backend.traced_summary(traced, limit=2) == (
+        "extract=triton for 3 shape(s) [1x300x900, 1x300x1000 +1 more]; "
+        "extract=xla for 1 shape(s) [4096x480x640]")
+    assert backend.traced_summary(set()) == "xla only"
 
 
 @pytest.mark.parametrize("platform,mode,stats,expect", [

@@ -43,7 +43,19 @@ def test_phase_streaming_tiny():
 def test_phase_kernels_tiny():
     (r,) = chip_smoke.phase_kernels(sizes=((24, 32),), batch=4, reps=1)
     assert r["size"] == "32x24"
-    assert set(r["blit_ms"]) == {"triton", "xla_scan", "xla_scatter"}
+    assert set(r["extract_ms"]) == {"triton", "xla"}
+
+
+def test_run_phase_reports_the_paths_it_traced(capsys):
+    """A phase's line names the paths its calls took, not a guess."""
+    chip_smoke.run_phase(
+        "3 streaming step", "96x64 x 2 batches of 8",
+        lambda: chip_smoke.phase_streaming(frame_hw=(64, 96), batch=8,
+                                           steps=2),
+        lambda r: f"matched {r['matched']:.0%}")
+    out = capsys.readouterr().out
+    assert "path extract=xla for 1 shape(s) [8x64x96]" in out
+    assert "matched 100%" in out
 
 
 def test_phase_matchers():

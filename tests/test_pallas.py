@@ -1,14 +1,13 @@
-"""Triton kernels checked in the Pallas interpreter (CPU).
+"""The Triton extraction kernel checked in the Pallas interpreter (CPU).
 
-Off the GPU the kernels of ``ops.pallas`` run interpreted
-(``utils.backend.interpret``), so their arithmetic is checked bit for bit
-against the XLA forms here; the compiled kernels are compared with the
-same forms on the card by ``chip_smoke.py``.
+Off the GPU the kernel of ``ops.pallas.extract`` runs interpreted
+(``utils.backend.interpret``), so its arithmetic is checked bit for bit
+against the XLA form here; the compiled kernel is compared with the same
+form on the card by ``chip_smoke.py``.
 """
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
 
 def _extract_ref(imgs):
@@ -24,83 +23,6 @@ def _assert_extract_equal(out, ref):
             getattr(ref, field))
         assert got.dtype == want.dtype and got.shape == want.shape, field
         np.testing.assert_array_equal(got, want, err_msg=field)
-
-
-def test_blit_kernel_matches_xla():
-    from remap_tpu.ops import atlas as xatlas
-    from remap_tpu.ops.pallas import blit as pblit
-
-    rng = np.random.default_rng(0)
-    f, h, w = 7, 48, 64
-    ah, aw = 80, 96
-    frames = rng.integers(0, 16, size=(f, h, w), dtype=np.uint8)
-    pos = np.stack(
-        [rng.integers(0, aw - w, f), rng.integers(0, ah - h, f)], -1
-    ).astype(np.int32)
-    ok = (rng.random((f, h, w)) < 0.8).astype(np.uint8)
-
-    ref = np.asarray(
-        xatlas.blit_frames(
-            jnp.asarray(frames),
-            jnp.asarray(pos),
-            atlas_h=ah,
-            atlas_w=aw,
-            masks=jnp.asarray(1 - ok),
-            kernels=False,
-        )
-    )
-    out = np.asarray(
-        pblit.blit_frames(
-            jnp.asarray(frames), jnp.asarray(pos),
-            jnp.zeros((ah, aw, 16), jnp.uint16), masks=jnp.asarray(1 - ok),
-        )
-    )
-    np.testing.assert_array_equal(out, ref)
-
-
-def test_blit_kernel_accumulates():
-    """Counts add onto the canvas and wrap at 2^16 like fgm's uint16."""
-    from remap_tpu.ops.pallas import blit as pblit
-
-    frames = np.full((2, 8, 16), 3, np.uint8)
-    pos = np.zeros((2, 2), np.int32)
-    d0 = jnp.zeros((16, 32, 16), jnp.uint16).at[0, 0, 3].set(65535)
-    d1 = pblit.blit_frames(jnp.asarray(frames), jnp.asarray(pos), d0)
-    d2 = pblit.blit_frames(jnp.asarray(frames), jnp.asarray(pos), d1)
-    assert int(np.asarray(d2)[1, 0, 3]) == 4
-    assert int(np.asarray(d2)[0, 0, 3]) == 3     # 65535 + 4 wraps
-    assert int(np.asarray(d2)[0, 0, 2]) == 0
-    assert int(np.asarray(d2)[8, 0, 3]) == 0     # below the frames
-
-
-@pytest.mark.parametrize("tile", [(8, 16), (16, 64), (32, 32)])
-def test_blit_kernel_tiles(tile):
-    """Canvas tiles that do not divide the canvas, frames straddling
-    tile edges: every tile shape gives the scan's canvas."""
-    from remap_tpu.ops import atlas as xatlas
-    from remap_tpu.ops.pallas import blit as pblit
-
-    rng = np.random.default_rng(sum(tile))
-    f, h, w, ah, aw = 5, 19, 23, 45, 70
-    frames = rng.integers(0, 16, size=(f, h, w), dtype=np.uint8)
-    pos = np.stack(
-        [rng.integers(0, aw - w + 1, f), rng.integers(0, ah - h + 1, f)], -1
-    ).astype(np.int32)
-    dots = rng.integers(0, 1 << 16, (ah, aw, 16)).astype(np.uint16)
-    ref = xatlas.blit_frames(jnp.asarray(frames), jnp.asarray(pos), ah, aw,
-                             dots=jnp.asarray(dots), kernels=False)
-    out = pblit.blit_frames(jnp.asarray(frames), jnp.asarray(pos),
-                            jnp.asarray(dots), tile=tile)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-def test_blit_kernel_refuses_2to16_frames():
-    from remap_tpu.ops.pallas import blit as pblit
-
-    with pytest.raises(ValueError):
-        pblit.blit_frames(jnp.zeros((1 << 16, 1, 1), jnp.uint8),
-                          jnp.zeros((1 << 16, 2), jnp.int32),
-                          jnp.zeros((1, 1, 16), jnp.uint16))
 
 
 def test_extract_banded_matches_xla():
